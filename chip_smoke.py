@@ -1,0 +1,744 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py          # from the repository root, one NVIDIA H100
+
+Phases, any failure ends the run with a non-zero exit code:
+
+1. the card's name and power limit, torch and CUDA versions; build the
+   hand-written CUDA kernels (one nvcc per source, in parallel);
+2. every kernel against its plain PyTorch version on the card, fp32 and
+   bf16, with the tolerances below (BSR matmul: M 1/4/64/200, the
+   model's weight shapes and an odd one, 128x128 and 32x32 blocks, an
+   all-pruned column, every epilogue the model uses; paged decode and
+   prefill: page sizes 4/8/16, GQA 16/16, 8/2, 4/1, ragged lengths
+   including 0, NaN in every page no row owns, q_offset 0/ps/3ps);
+3. the main path: qwen1.5-0.5b at full width (24 layers, d_model 1024,
+   16 heads, d_ff 2816, vocab 151936) from a seeded generator,
+   knapsack-pruned at 0.75 with 128x128 blocks, BSR-packed, served
+   through ``ServingEngine`` — (a) in fp32, every stream token-identical
+   to its solo decode with at least one prefix-cache hit; (b) in the
+   config's bf16, every stream full length with finite logits.  Launch
+   counts are zeroed just before run (a) and read just after it;
+4. one ``kernels`` JSON line: launches on the main path, error against
+   the plain version at the main path's shapes (held to the phase-2
+   tolerances), the card's busy share over run (a) from
+   ``torch.profiler``, and the kernel's, the plain version's and one
+   PyTorch library call's time at the main path's shapes beside the
+   least time the card could take (``bound_ms``).
+
+The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
+without the repository beside it, the script exits non-zero and prints
+no result.  Details go to ``build/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# published H100 SXM peaks (NVIDIA data sheet, dense): the bound_ms divisors
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# normalized error max|kernel - plain| / max(1, max|plain|) allowed: fp32
+# sums differ only in order; bf16 outputs may differ by one bf16 rounding
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+ATTN_TOL = 2e-5            # attention is fp32 inside for every input dtype
+
+OUT = ROOT / "build"                  # listed in .gitignore
+REPORT: dict = {"checks": [], "shapes": []}
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+def rel_err(got, want) -> float:
+    import torch
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        return float("inf")
+    return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
+
+
+def held(name, got, want, tol) -> float:
+    """Max abs error of a kernel's output against its plain version at a
+    main-path shape; raises past the same normalized tolerance as
+    phase 2."""
+    err = rel_err(got, want)
+    if err > tol:
+        raise AssertionError(f"{name} at a main-path shape: normalized "
+                             f"error {err:.3g} > {tol}")
+    return float((got.float() - want.float()).abs().max())
+
+
+class Timer:
+    """Median time of ``fn`` over ``reps`` launches, each after an L2
+    flush (the main path streams far more than the 50 MB L2 between two
+    calls of one kernel, so it finds the cache cold), with CUDA events.
+
+    ``device_only=True`` (kernels and library calls, which never wait for
+    the host): a spin kernel queued first keeps the card busy while the
+    host enqueues every launch, so each event pair times the device's
+    work and not the Python wrapper in front of it.  Were the card to run
+    dry before the last launch is queued, the spin grows and the timing
+    is redone.  ``device_only=False`` (the plain versions, some of which
+    read lengths back to the host): each call is timed alone, host gaps
+    included, as it runs in place of the kernel."""
+
+    SPIN_CYCLES = 20_000_000        # ~10 ms at the H100's boost clock
+
+    def __init__(self, device):
+        import torch
+        self.torch = torch
+        self.flush_buf = torch.empty(96 * 2**20, dtype=torch.uint8, device=device)
+
+    def __call__(self, fn, reps: int = 25, warmup: int = 3,
+                 device_only: bool = True) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        spin = self.SPIN_CYCLES
+        while True:
+            pairs = [(torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+            spun = torch.cuda.Event()
+            if device_only:
+                torch.cuda._sleep(spin)
+                spun.record()
+            for start, end in pairs:
+                self.flush_buf.zero_()
+                start.record()
+                fn()
+                end.record()
+                if not device_only:
+                    end.synchronize()
+            ran_dry = device_only and spun.query()
+            torch.cuda.synchronize()
+            if not ran_dry:
+                break
+            if spin >= 64 * self.SPIN_CYCLES:
+                raise RuntimeError("timer: the host could not keep ahead of "
+                                   "the card; device time not measured")
+            spin *= 4
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def bound_ms(nbytes: float, flops: float, dtype_name: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dname(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# the model uses none, bias, silu+mult and res; the rest covers the table
+EPIS = ["none", "bias", "silu+mult", "res", "bias+silu+mult",
+        "bias+gelu+mult+res"]
+
+
+def make_epilogue(torch, spec, m, n, dtype, g, dev):
+    from repro_torch.kernels import Epilogue
+    if spec == "none":
+        return None
+    kw = {}
+    if "bias" in spec:
+        kw["bias"] = torch.randn(n, generator=g, device=dev).to(dtype)
+    if "mult" in spec:
+        kw["multiplier"] = torch.randn((m, n), generator=g, device=dev).to(dtype)
+    if "res" in spec:
+        kw["residual"] = torch.randn((m, n), generator=g, device=dev).to(dtype)
+    act = next((a for a in ("silu", "gelu") if a in spec), None)
+    return Epilogue(activation=act, **kw)
+
+
+def check_bsr(torch, dev) -> float:
+    from repro_torch.core import BlockingSpec, pack_bsr
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.block_sparse_matmul import bsr_matmul_plain
+
+    worst = 0.0
+    i = 0
+    for (k, n) in [(1024, 1024), (1024, 2816), (2816, 1024), (100, 36)]:
+        for (bk, bn) in [(128, 128), (32, 32)]:
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.Generator(device=dev).manual_seed(1000 + i)
+                w = torch.randn((k, n), generator=g, device=dev).to(dtype)
+                gk, gn = -(-k // min(bk, k)), -(-n // min(bn, n))
+                alive = torch.rand((gk, gn), generator=g, device=dev) < 0.3
+                alive[:, 0] = False              # an all-pruned column
+                alive[0, -1] = True              # columns of unequal depth
+                ebk, ebn = min(bk, k), min(bn, n)
+                mask = alive.repeat_interleave(ebk, 0).repeat_interleave(ebn, 1)
+                bsr = pack_bsr(w, BlockingSpec(bk, bn), mask=mask[:k, :n])
+                pad = int((bsr.indices < 0).sum())
+                for m in (1, 4, 64, 200):
+                    spec = EPIS[i % len(EPIS)]
+                    i += 1
+                    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+                    epi = make_epilogue(torch, spec, m, n, dtype, g, dev)
+                    got = ops.bsr_matmul(x, bsr, epilogue=epi)
+                    want = bsr_matmul_plain(x, bsr, epilogue=epi)
+                    torch.cuda.synchronize()
+                    err = rel_err(got, want)
+                    ok = err <= TOL[dname(dtype)] and got.dtype == dtype
+                    REPORT["checks"].append(dict(
+                        kernel="bsr_matmul", m=m, k=k, n=n, bk=bk, bn=bn,
+                        dtype=dname(dtype), epilogue=spec, padding_slots=pad,
+                        rel_err=err, ok=ok))
+                    if not ok:
+                        raise AssertionError(
+                            f"bsr_matmul M={m} K={k} N={n} blocks {bk}x{bn} "
+                            f"{dname(dtype)} {spec}: error {err:.3g} > "
+                            f"{TOL[dname(dtype)]}")
+                    worst = max(worst, err)
+    log(f"  bsr_matmul: {i} cases OK, worst normalized error {worst:.3g} "
+        f"(tolerance fp32 {TOL['float32']}, bf16 {TOL['bfloat16']})")
+    return worst
+
+
+def poisoned_pools(torch, g, dev, b, kvh, dh, ps, max_pages, lens, pool_dtype):
+    """Shuffled page ids per row (length-0 rows park on the null page 0);
+    NaN in every slot no row owns, the null page included."""
+    n_pages = b * max_pages + 1
+    tbl = (torch.randperm(n_pages - 1, generator=g, device=dev)[: b * max_pages]
+           .reshape(b, max_pages) + 1)
+    lens_l = [int(v) for v in lens]
+    for r, ln in enumerate(lens_l):
+        if ln == 0:
+            tbl[r] = 0
+    kp = torch.full((n_pages, ps, kvh, dh), float("nan"), device=dev)
+    vp = kp.clone()
+    for r, ln in enumerate(lens_l):
+        t = torch.arange(ln, device=dev)
+        pid, off = tbl[r, t // ps], t % ps
+        kp[pid, off] = torch.randn((ln, kvh, dh), generator=g, device=dev)
+        vp[pid, off] = torch.randn((ln, kvh, dh), generator=g, device=dev)
+    return kp.to(pool_dtype), vp.to(pool_dtype), tbl.to(torch.int32)
+
+
+def check_attention(torch, dev) -> float:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_decode_plain, paged_attention_prefill_plain)
+
+    worst = 0.0
+    n_dec = n_pre = 0
+    dh = 64
+    for ps in (4, 8, 16):
+        for h, kvh in ((16, 16), (8, 2), (4, 1)):
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.Generator(device=dev).manual_seed(ps * 100 + h + kvh)
+                # decode: ragged cache_len including 0
+                b, mp = 5, 9
+                clen = torch.tensor([0, 1, ps + 3, 5 * ps, mp * ps - 1],
+                                    dtype=torch.int32, device=dev)
+                kp, vp, tbl = poisoned_pools(torch, g, dev, b, kvh, dh, ps, mp,
+                                             clen, torch.float32)
+                q = torch.randn((b, h, dh), generator=g, device=dev).to(dtype)
+                kn = torch.randn((b, kvh, dh), generator=g, device=dev).to(dtype)
+                vn = torch.randn((b, kvh, dh), generator=g, device=dev).to(dtype)
+                got = ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen)
+                want = paged_attention_decode_plain(q, kn, vn, kp, vp, tbl, clen)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                REPORT["checks"].append(dict(
+                    kernel="paged_attention_decode", ps=ps, h=h, kvh=kvh,
+                    dtype=dname(dtype), rel_err=err, ok=err <= ATTN_TOL))
+                if err > ATTN_TOL:
+                    raise AssertionError(
+                        f"paged decode ps={ps} H={h} K={kvh} {dname(dtype)}: "
+                        f"error {err:.3g} > {ATTN_TOL}")
+                worst = max(worst, err)
+                n_dec += 1
+                # prefill: q_offset 0 / ps / 3ps, rows past their length
+                for q_offset in (0, ps, 3 * ps):
+                    s = 37
+                    total = q_offset + s
+                    lens = torch.tensor([total, q_offset + 5, total - 9],
+                                        dtype=torch.int32, device=dev)
+                    mp2 = -(-total // ps) + 1
+                    kp2, vp2, tbl2 = poisoned_pools(torch, g, dev, 3, kvh, dh,
+                                                    ps, mp2, lens, torch.float32)
+                    qp = torch.randn((3, s, h, dh), generator=g, device=dev).to(dtype)
+                    got = ops.paged_attention_prefill(qp, kp2, vp2, tbl2, lens,
+                                                      q_offset=q_offset)
+                    want = paged_attention_prefill_plain(qp, kp2, vp2, tbl2, lens,
+                                                         q_offset=q_offset)
+                    torch.cuda.synchronize()
+                    err = rel_err(got, want)
+                    dead_ok = bool((got[1, 5:] == 0).all())
+                    ok = err <= ATTN_TOL and dead_ok
+                    REPORT["checks"].append(dict(
+                        kernel="paged_attention_prefill", ps=ps, h=h, kvh=kvh,
+                        q_offset=q_offset, dtype=dname(dtype), rel_err=err,
+                        ok=ok))
+                    if not ok:
+                        raise AssertionError(
+                            f"paged prefill ps={ps} H={h} K={kvh} q_offset="
+                            f"{q_offset} {dname(dtype)}: error {err:.3g}, rows "
+                            f"past length zero: {dead_ok}")
+                    worst = max(worst, err)
+                    n_pre += 1
+    log(f"  paged_attention_decode: {n_dec} cases, paged_attention_prefill: "
+        f"{n_pre} cases OK (NaN-poisoned pools), worst normalized error "
+        f"{worst:.3g} (tolerance {ATTN_TOL})")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path
+# ---------------------------------------------------------------------------
+
+class Capture:
+    """Keeps copies of the kernels' inputs at the main path's shapes while
+    a warm-up run of the engine goes through ``kernels.ops`` (the
+    counted run goes through the untouched functions)."""
+
+    def __init__(self, torch, ops):
+        self.torch, self.ops = torch, ops
+        self.orig = {n: getattr(ops, n) for n in (
+            "bsr_matmul", "paged_attention_decode", "paged_attention_prefill")}
+        self.bsr = {}
+        self.decode = None
+        self.prefill = {}
+
+    def __enter__(self):
+        torch, ops, orig = self.torch, self.ops, self.orig
+
+        def clone(t):
+            return None if t is None else t.detach().clone()
+
+        def bsr_matmul(x, bsr, *, epilogue=None):
+            kind = "none" if epilogue is None else "+".join(
+                name for name, v in (("bias", epilogue.bias),
+                                     (epilogue.activation, epilogue.activation),
+                                     ("mult", epilogue.multiplier),
+                                     ("res", epilogue.residual)) if v is not None)
+            # one decode-shaped call (B, 1, D) and the longest prompt per
+            # weight shape and epilogue
+            phase = "decode" if x.ndim == 3 and x.shape[1] == 1 else "prefill"
+            key = (phase, bsr.shape, kind)
+            if key not in self.bsr or x.numel() > self.bsr[key][0].numel():
+                self.bsr[key] = (clone(x), bsr, None if epilogue is None else
+                                 epilogue.map_operands(clone))
+            return orig["bsr_matmul"](x, bsr, epilogue=epilogue)
+
+        def decode(q, k_new, v_new, k_pool, v_pool, page_table, cache_len):
+            ctx = int(torch.as_tensor(cache_len).sum())
+            if self.decode is None or ctx > self.decode[0]:
+                self.decode = (ctx, tuple(clone(t) for t in (
+                    q, k_new, v_new, k_pool, v_pool, page_table,
+                    torch.as_tensor(cache_len))))
+            return orig["paged_attention_decode"](
+                q, k_new, v_new, k_pool, v_pool, page_table, cache_len)
+
+        def prefill(q, k_pool, v_pool, page_table, lengths, *, q_offset=0):
+            key = q_offset > 0
+            if key not in self.prefill or q.shape[1] > self.prefill[key][0].shape[1]:
+                self.prefill[key] = (clone(q), clone(k_pool), clone(v_pool),
+                                     clone(page_table), clone(torch.as_tensor(lengths)),
+                                     q_offset)
+            return orig["paged_attention_prefill"](
+                q, k_pool, v_pool, page_table, lengths, q_offset=q_offset)
+
+        ops.bsr_matmul = bsr_matmul
+        ops.paged_attention_decode = decode
+        ops.paged_attention_prefill = prefill
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.ops, name, fn)
+        return False
+
+
+def traffic(vocab: int, seed: int):
+    """8 requests, ragged 17..64-token prompts over a shared 16-token
+    prefix; request 1 repeats request 0 (a full-prompt prefix hit)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, size=16)
+    tails = rng.integers(1, 49, size=8)
+    prompts = [np.concatenate([prefix, rng.integers(0, vocab, size=int(t))])
+               .astype(np.int32) for t in tails]
+    prompts[1] = prompts[0].copy()
+    return prompts
+
+
+def serve_once(params, cfg, prompts, gen, dev):
+    import torch
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(params, cfg, num_slots=4, page_size=8,
+                        max_seq_len=max(len(p) for p in prompts) + gen,
+                        ticks_per_sync=4, device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(p, gen, arrival=2 * i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    return eng, done, time.perf_counter() - t0
+
+
+def device_busy(torch, params, cfg, prompts, gen, dev, wall_s):
+    """Where run (a)'s time goes: the same run again under torch.profiler.
+    The kernels' summed device time (one stream, so no overlap) over the
+    unprofiled run's wall time is the card's busy share; the rest is host
+    time (Python, launches, syncs).  Reported, not gated: a profiler that
+    shows no device time gives "not measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            serve_once(params, cfg, prompts, gen, dev)
+        avgs = prof.key_averages()
+    except Exception as exc:                    # diagnostic phase only
+        return {"busy_share": "not measured", "error": repr(exc)}
+    # device-side events only (kernels, copies): a CPU op's device time
+    # repeats its kernels'
+    kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in avgs if e.device_type == DeviceType.CUDA),
+                  reverse=True)
+    busy_ms = sum(t for t, _, _ in kern)
+    if busy_ms <= 0:
+        return {"busy_share": "not measured",
+                "error": "the profiler recorded no device time"}
+    return {"device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
+            "busy_share": busy_ms / (wall_s * 1e3),
+            "top": [{"ms": t, "calls": c, "name": k[:90]}
+                    for t, c, k in kern[:10] if t > 0]}
+
+
+def main_path(torch, dev, gpu_line):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import RequestStatus
+
+    gen, seed = 16, 0
+    base = get_config("qwen1.5-0.5b")
+    cfg_a = base.replace(param_dtype="float32", activ_dtype="float32")
+    prompts = traffic(base.vocab, seed)
+
+    t0 = time.perf_counter()
+    params, summ = serve.build_params(cfg_a, seed=seed, device=dev, pruned=0.75,
+                                      block=(128, 128), min_size=4096)
+    torch.cuda.synchronize()
+    log(f"  (a) fp32: init + knapsack + pack {time.perf_counter() - t0:.2f}s; "
+        f"kept {summ['kept']}/{summ['total']} structures "
+        f"({summ['method']}), BSR density {summ['density']:.4f} "
+        f"({summ['nnz_blocks']}/{summ['total_blocks']} blocks)")
+
+    with Capture(torch, ops) as cap:        # warm-up run, inputs captured
+        serve_once(params, cfg_a, prompts, gen, dev)
+    _build.reset_launch_counts()
+    eng, done, dt = serve_once(params, cfg_a, prompts, gen, dev)
+    launches = dict(_build.launch_counts)
+    emitted = sum(len(r.tokens) for r in done.values())
+    ttft = sorted(eng.ttft_seconds(r) * 1e3 for r in done)
+    st = eng.prefix_stats
+    stats_a = dict(tokens=emitted, seconds=dt, tok_per_s=emitted / dt,
+                   ttft_ms_p50=statistics.median(ttft), ttft_ms_max=ttft[-1],
+                   prefix_hit_requests=st["hit_requests"],
+                   pages_shared=st["pages_shared"], launches=launches,
+                   decode_ticks=eng.decode_ticks,
+                   slot_utilization=eng.slot_utilization)
+    log(f"  (a) fp32: {len(done)} requests, {emitted} tokens in {dt:.3f}s = "
+        f"{emitted / dt:.1f} tok/s, TTFT p50 {stats_a['ttft_ms_p50']:.2f} ms "
+        f"max {ttft[-1]:.2f} ms, {st['hit_requests']} prefix-hit requests "
+        f"({st['pages_shared']} pages mapped), launches {launches}")
+    log(f"  main path (a) on {gpu_line}: {emitted / dt:.1f} tok/s, TTFT p50 "
+        f"{stats_a['ttft_ms_p50']:.2f} ms")
+    if any(r.status is not RequestStatus.FINISHED or len(r.tokens) != gen
+           for r in done.values()):
+        raise AssertionError("run (a): a stream did not finish at full length")
+    if st["hit_requests"] < 1:
+        raise AssertionError("run (a): no prefix-cache hit")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"run (a): kernel {name} never launched")
+    bad = serve.verify_streams(params, cfg_a, done, gen, device=dev)
+    if bad:
+        raise AssertionError(f"run (a): streams {bad} differ from solo decode")
+    log(f"  (a) fp32: all {len(done)} streams token-identical to solo decode")
+    busy = device_busy(torch, params, cfg_a, prompts, gen, dev, dt)
+    stats_a["device"] = busy
+    if isinstance(busy["busy_share"], float):
+        log(f"  (a) fp32: card busy {busy['device_busy_ms']:.1f} of "
+            f"{busy['wall_ms']:.1f} ms wall ({100 * busy['busy_share']:.1f}%), "
+            f"{eng.decode_ticks} decode ticks, "
+            f"{dt / max(eng.decode_ticks, 1) * 1e3:.2f} ms wall per tick; "
+            f"top kernels:")
+        for row in busy["top"][:6]:
+            log(f"    {row['ms']:9.3f} ms {row['calls']:6d} calls  {row['name']}")
+    else:
+        log(f"  (a) fp32: card busy share not measured ({busy['error']})")
+    first_a = {rid: int(r.tokens[0]) for rid, r in done.items()}
+    kernels = timings(torch, dev, cap, launches)
+    del params, cap, eng
+    torch.cuda.empty_cache()
+
+    # (b) the config's own bf16 dtypes, same seed and traffic
+    t0 = time.perf_counter()
+    params_b, _ = serve.build_params(base, seed=seed, device=dev, pruned=0.75,
+                                     block=(128, 128), min_size=4096)
+    serve_once(params_b, base, prompts, gen, dev)          # warm-up
+    eng_b, done_b, dt_b = serve_once(params_b, base, prompts, gen, dev)
+    emitted_b = sum(len(r.tokens) for r in done_b.values())
+    if any(r.status is not RequestStatus.FINISHED or len(r.tokens) != gen
+           for r in done_b.values()):
+        raise AssertionError("run (b): a stream failed (non-finite logits) or "
+                             "ended short")
+    agree = sum(first_a[rid] == int(r.tokens[0]) for rid, r in done_b.items())
+    stats_b = dict(tokens=emitted_b, seconds=dt_b, tok_per_s=emitted_b / dt_b,
+                   first_token_agreement=f"{agree}/{len(done_b)}")
+    log(f"  (b) bf16: {len(done_b)} streams at full length, finite logits; "
+        f"{emitted_b} tokens in {dt_b:.3f}s = {emitted_b / dt_b:.1f} tok/s; "
+        f"first tokens equal to (a) in {agree}/{len(done_b)} requests "
+        f"(reported, not gated)")
+    del params_b, eng_b
+    return stats_a, stats_b, kernels
+
+
+# ---------------------------------------------------------------------------
+# phase 4: times at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def timings(torch, dev, cap, launches):
+    from repro_torch.core import bsr_to_dense
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.block_sparse_matmul import bsr_matmul_plain
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_decode_plain, paged_attention_prefill_plain)
+    import torch.nn.functional as F
+
+    timer = Timer(dev)
+    rows = []
+
+    # BSR matmul: every captured (M, shape, epilogue), the decode-shaped
+    # gate projection (the largest decode call) is the headline entry
+    head = None
+    for (phase, shape, kind), (x, bsr, epi) in sorted(cap.bsr.items()):
+        m = x.numel() // shape[0]
+        es = x.element_size()
+        x2 = x.reshape(-1, shape[0])          # the plain version takes (M, K)
+        epi2 = None if epi is None else epi.map_operands(
+            lambda a: a.reshape(-1, a.shape[-1]))
+        ms = timer(lambda: ops.bsr_matmul(x, bsr, epilogue=epi))
+        plain = timer(lambda: bsr_matmul_plain(x2, bsr, epilogue=epi2),
+                      reps=10, device_only=False)
+        dense = bsr_to_dense(bsr)
+        lib = timer(lambda: torch.matmul(x, dense))
+        err = held("bsr_matmul",
+                   ops.bsr_matmul(x, bsr, epilogue=epi).reshape(-1, shape[1]),
+                   bsr_matmul_plain(x2, bsr, epilogue=epi2), TOL[dname(x.dtype)])
+        bk, bn = bsr.blocking.bk, bsr.blocking.bn
+        z = bsr.nnz_blocks
+        rr, cc = bsr.flat_rows[:z].long(), bsr.flat_cols[:z].long()
+        live = int(((shape[0] - rr * bk).clamp(max=bk)
+                    * (shape[1] - cc * bn).clamp(max=bn)).sum())
+        nbytes = (m * shape[0] * es + z * bk * bn * es + bsr.indices.numel() * 8
+                  + m * shape[1] * es)
+        if epi is not None:
+            nbytes += sum(t.numel() * t.element_size() for t in
+                          (epi.bias, epi.multiplier, epi.residual) if t is not None)
+        bnd, by = bound_ms(nbytes, 2.0 * m * live, dname(x.dtype))
+        row = dict(name="bsr_matmul", phase=phase, m=m, k=shape[0], n=shape[1],
+                   epilogue=kind,
+                   nnz_blocks=z, ms=ms, plain_ms=plain, library_ms=lib,
+                   bound_ms=bnd, bound_by=by, max_abs_err=err)
+        rows.append(row)
+        REPORT["shapes"].append(row)
+        if phase == "decode" and shape == (1024, 2816) and "mult" in kind:
+            head = row
+    if head is None:
+        head = max((r for r in rows if r["name"] == "bsr_matmul"),
+                   key=lambda r: r["ms"])
+
+    # paged decode at the largest captured context
+    _, (q, kn, vn, kp, vp, tbl, clen) = cap.decode
+    clen = clen.to(torch.int32)
+    ms = timer(lambda: ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen))
+    plain = timer(lambda: paged_attention_decode_plain(q, kn, vn, kp, vp, tbl, clen),
+                  reps=10, device_only=False)
+    err = held("paged_attention_decode",
+               ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen),
+               paged_attention_decode_plain(q, kn, vn, kp, vp, tbl, clen),
+               ATTN_TOL)
+    b, h, dh = q.shape
+    kvh, ps = kn.shape[1], kp.shape[1]
+    L = int(clen.max()) + 1
+    pos = torch.arange(L, device=dev)
+    pid = tbl.long()[:, (pos // ps).clamp(max=tbl.shape[1] - 1)]
+    kc = kp[pid, (pos % ps)[None]].clone()              # (B, L, K, dh)
+    vc = vp[pid, (pos % ps)[None]].clone()
+    rows_b = torch.arange(b, device=dev)
+    kc[rows_b, clen.long()] = kn.float()
+    vc[rows_b, clen.long()] = vn.float()
+    g = h // kvh
+    kq = kc.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    vq = vc.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    mask = (pos[None, :] <= clen[:, None].long())[:, None, None, :]
+    q4 = q.float()[:, :, None, :]
+    lib = timer(lambda: F.scaled_dot_product_attention(q4, kq, vq, attn_mask=mask))
+    ctx = int(clen.long().sum())
+    es_q, es_p = q.element_size(), kp.element_size()
+    nbytes = (b * h * dh * es_q + 2 * b * kvh * dh * es_q + 2 * ctx * kvh * dh * es_p
+              + 4 * (b + int(((clen + ps - 1) // ps).sum())) + b * h * dh * 4)
+    flops = 4.0 * (ctx + b) * h * dh
+    bnd, by = bound_ms(nbytes, flops, "float32")
+    dec = dict(name="paged_attention_decode", b=b, h=h, kvh=kvh, dh=dh, ps=ps,
+               cache_len=[int(v) for v in clen], ms=ms, plain_ms=plain,
+               library_ms=lib, bound_ms=bnd, bound_by=by, max_abs_err=err)
+    REPORT["shapes"].append(dec)
+
+    # paged prefill: the longest captured admission (a prefix-hit tail too)
+    pre_rows = []
+    for hit, (qp, kp2, vp2, tbl2, lens, q_offset) in sorted(cap.prefill.items()):
+        lens = lens.to(torch.int32)
+        ms = timer(lambda: ops.paged_attention_prefill(qp, kp2, vp2, tbl2, lens,
+                                                       q_offset=q_offset))
+        plain = timer(lambda: paged_attention_prefill_plain(
+            qp, kp2, vp2, tbl2, lens, q_offset=q_offset), reps=10,
+            device_only=False)
+        err = held("paged_attention_prefill",
+                   ops.paged_attention_prefill(qp, kp2, vp2, tbl2, lens,
+                                               q_offset=q_offset),
+                   paged_attention_prefill_plain(qp, kp2, vp2, tbl2, lens,
+                                                 q_offset=q_offset), ATTN_TOL)
+        b, s, h, dh = qp.shape
+        kvh, ps = kp2.shape[2], kp2.shape[1]
+        tot = int(lens.max())
+        pos = torch.arange(tot, device=dev)
+        pid = tbl2.long()[:, pos // ps]
+        kc = kp2[pid, (pos % ps)[None]].float()
+        vc = vp2[pid, (pos % ps)[None]].float()
+        g = h // kvh
+        kq = kc.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+        vq = vc.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+        qpos = q_offset + torch.arange(s, device=dev)
+        mask = ((pos[None, None, :] <= qpos[None, :, None])
+                & (pos[None, None, :] < lens.long()[:, None, None]))[:, None]
+        q4 = qp.float().transpose(1, 2).contiguous()
+        lib = timer(lambda: F.scaled_dot_product_attention(q4, kq, vq, attn_mask=mask))
+        lens_l = [int(v) for v in lens]
+        pairs = sum(min(q_offset + i, ln - 1) + 1
+                    for ln in lens_l for i in range(s) if q_offset + i < ln)
+        nbytes = (qp.numel() * qp.element_size()
+                  + 2 * sum(lens_l) * kvh * dh * kp2.element_size()
+                  + qp.numel() * 4 + 4 * (tbl2.numel() + b))
+        bnd, by = bound_ms(nbytes, 4.0 * pairs * h * dh, "float32")
+        row = dict(name="paged_attention_prefill", b=b, s=s, h=h, kvh=kvh, dh=dh,
+                   ps=ps, q_offset=q_offset, lengths=lens_l, ms=ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+                   max_abs_err=err)
+        pre_rows.append(row)
+        REPORT["shapes"].append(row)
+    pre = max(pre_rows, key=lambda r: r["s"])
+
+    sources = {
+        "bsr_matmul": ("src/repro_torch/csrc/bsr_matmul.cu",
+                       "src/repro/kernels/block_sparse_matmul.py:77"),
+        "paged_attention_decode": ("src/repro_torch/csrc/paged_decode.cu",
+                                   "src/repro/kernels/paged_attention.py:146"),
+        "paged_attention_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
+                                    "src/repro/kernels/paged_attention.py:324"),
+    }
+    out = []
+    for r in (head, dec, pre):
+        src, rep = sources[r["name"]]
+        out.append(dict(name=r["name"], route="cuda", source=src, replaces=rep,
+                        launches=launches[r["name"]], max_abs_err=r["max_abs_err"],
+                        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                        bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    for r in REPORT["shapes"]:
+        desc = {k: r[k] for k in r if k not in ("name", "ms", "plain_ms",
+                                                "library_ms", "bound_ms",
+                                                "bound_by", "max_abs_err")}
+        log(f"  {r['name']} {desc}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err "
+            f"{r['max_abs_err']:.3g}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch is not beside this script; run it "
+              "from the repository root", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False     # fp32 parity: no TF32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    gpu_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        f"{torch.cuda.get_device_name(0)}, power limit not read"
+    log(gpu_line)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
+
+    from repro_torch.kernels import _build
+    secs = _build.build_all()
+    log(f"phase 1: built {len(_build.SOURCES)} CUDA kernels in {secs:.1f}s "
+        f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for name, text in _build.build_logs().items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    log("phase 2: kernels against their plain versions")
+    check_bsr(torch, dev)
+    check_attention(torch, dev)
+
+    log("phase 3: main path, qwen1.5-0.5b full width, knapsack 0.75, BSR 128x128")
+    stats_a, stats_b, kernels = main_path(torch, dev, gpu_line)
+
+    REPORT.update(gpu=gpu_line, torch=torch.__version__, cuda=torch.version.cuda,
+                  build_seconds=secs, main_path_fp32=stats_a,
+                  main_path_bf16=stats_b, kernels=kernels,
+                  seconds=time.perf_counter() - t_start)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
+    log(f"done in {time.perf_counter() - t_start:.1f}s; details in "
+        f"{(OUT / 'chip_smoke.json').relative_to(ROOT)}")
+    log(gpu_line)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

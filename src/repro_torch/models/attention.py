@@ -1,0 +1,267 @@
+"""Attention: GQA prefill and decode over contiguous or paged KV caches —
+torch port of ``src/repro/models/attention.py``.
+
+Paged caches are pools ``(num_pages, page_size, K, dh)`` shared by all
+sequences.  Prefill scatters the prompt's K/V straight into the pages a
+row owns and attends with the paged prefill kernel (:266-281); decode
+writes the new token at page ``cache_len // ps`` (:415-424) and attends
+with the paged decode kernel, the new K/V seeding its state (:434-443).
+The reference updates caches functionally and donates the buffers; here
+the pool and cache writes are in place (``index_put_`` / slice
+assignment), which is what ``donate_argnames`` buys there.
+
+The contiguous branches and ``chunked_causal_attention`` stay plain
+torch — the reference has no kernel there either; the solo-decode check
+of the serving engine runs on them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from .layers import apply_rope, dense, dense_init
+
+__all__ = [
+    "attention_init",
+    "attention_prefill",
+    "attention_decode",
+    "chunked_causal_attention",
+    "init_kv_cache",
+]
+
+NEG_INF = -1e30
+
+
+def attention_init(d_model: int, num_heads: int, kv_heads: int, head_dim: int,
+                   *, generator, device, qkv_bias: bool = False,
+                   out_bias: bool = False, dtype=torch.float32) -> Dict:
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {
+        "wq": dense_init(d_model, num_heads * head_dim, use_bias=qkv_bias, **kw),
+        "wk": dense_init(d_model, kv_heads * head_dim, use_bias=qkv_bias, **kw),
+        "wv": dense_init(d_model, kv_heads * head_dim, use_bias=qkv_bias, **kw),
+        "wo": dense_init(num_heads * head_dim, d_model, use_bias=out_bias,
+                         stddev=1.0 / math.sqrt(num_heads * head_dim), **kw),
+    }
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, s, hd = x.shape
+    return x.reshape(b, s, heads, hd // heads)
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q (B,Sq,K,G,dh), k (B,Sk,K,dh) -> (B,K,G,Sq,Sk) fp32."""
+    return torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
+                        k.to(torch.float32))
+
+
+def _gqa_values(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """w (B,K,G,Sq,Sk) fp32, v (B,Sk,K,dh) -> (B,Sq,K,G,dh) fp32."""
+    return torch.einsum("bkgqs,bskd->bqkgd", w, v.to(torch.float32))
+
+
+def chunked_causal_attention(q, k, v, *, causal: bool = True,
+                             window: Optional[int] = None, chunk: int = 512,
+                             q_offset: int = 0) -> torch.Tensor:
+    """Statically chunked attention, q (B,S,H,dh) over k/v (B,Sk,K,dh);
+    query row ``i`` sits at absolute position ``q_offset + i``."""
+    b, s, h, dh = q.shape
+    kv_heads = k.shape[2]
+    g = h // kv_heads
+    scale = 1.0 / math.sqrt(dh)
+    qg = q.reshape(b, s, kv_heads, g, dh)
+    sk = k.shape[1]
+    chunk = min(chunk, s)
+    out = []
+    for qs in range(0, s, chunk):
+        qe = min(qs + chunk, s)
+        abs_qs, abs_qe = qs + q_offset, qe + q_offset
+        hi = min(abs_qe, sk) if causal else sk
+        lo = 0 if window is None else max(0, abs_qs - window + 1)
+        if hi <= lo:
+            out.append(torch.zeros((b, qe - qs, kv_heads, g, dh), dtype=q.dtype,
+                                   device=q.device))
+            continue
+        scores = _gqa_scores(qg[:, qs:qe], k[:, lo:hi]) * scale
+        if causal or window is not None:
+            qpos = torch.arange(abs_qs, abs_qe, device=q.device)[:, None]
+            kpos = torch.arange(lo, hi, device=q.device)[None, :]
+            mask = torch.ones((qe - qs, hi - lo), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= kpos <= qpos
+            if window is not None:
+                mask &= kpos > qpos - window
+            scores = scores.masked_fill(~mask, NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        out.append(_gqa_values(w, v[:, lo:hi]).to(q.dtype))
+    return torch.cat(out, dim=1).reshape(b, s, h, dh)
+
+
+def _wo_project(p: Dict, o: torch.Tensor, num_heads: int, head_dim: int,
+                accum) -> torch.Tensor:
+    """Output projection of (B, S, H, dh) attention values (reference
+    :171): heads and head_dim contracted together, fp32 accumulation."""
+    b, s = o.shape[:2]
+    return dense(p["wo"], o.reshape(b, s, num_heads * head_dim), accum=accum)
+
+
+def _qkv(p, x, num_heads, kv_heads):
+    q = _split_heads(dense(p["wq"], x), num_heads)
+    k = _split_heads(dense(p["wk"], x), kv_heads)
+    v = _split_heads(dense(p["wv"], x), kv_heads)
+    return q, k, v
+
+
+def attention_prefill(
+    p: Dict,
+    x: torch.Tensor,                      # (B, S, D)
+    cache: Dict[str, torch.Tensor],
+    *,
+    num_heads: int,
+    kv_heads: int,
+    head_dim: int,
+    positions: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    chunk: int = 512,
+    rope_theta: float = 10000.0,
+    use_rope: bool = True,
+    accum=None,
+    page_table: Optional[torch.Tensor] = None,   # (B, max_pages) pool ids
+    start_pos: int = 0,                          # logical pos of x[:, 0]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Batched causal prefill that also fills the KV cache (in place).
+
+    With ``page_table`` the cache is a pool: token ``t`` of row ``b`` goes
+    to ``pool[table[b, t // ps], t % ps]`` and attention runs over the
+    pages with the fused kernel.  ``start_pos > 0`` is the tail-only
+    prefill of a prefix-cache hit: ``x`` holds positions
+    ``[start_pos, start_pos + S)`` and the first ``start_pos`` positions
+    are already in the pool."""
+    accum = accum or torch.float32
+    if page_table is not None and window is not None:
+        raise NotImplementedError(
+            "attention_prefill: sliding-window attention over a paged KV "
+            f"cache is not implemented (window={window} with page_table) — "
+            "SWA uses contiguous ring caches; drop the window or use a "
+            "contiguous cache")
+    if start_pos and page_table is None:
+        raise ValueError(
+            "attention_prefill: start_pos > 0 needs a page_table — the "
+            "prefix lives in pool pages, a contiguous cache has no shared "
+            "prefix to resume from")
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, num_heads, kv_heads)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(start_pos, start_pos + s,
+                                     device=x.device)[None].expand(b, s)
+        q = apply_rope(q, positions, theta=rope_theta)
+        k = apply_rope(k, positions, theta=rope_theta)
+
+    ck, cv = cache["k"], cache["v"]
+    kc, vc = k.to(ck.dtype), v.to(cv.dtype)
+    if page_table is not None:
+        ps = ck.shape[1]
+        t = torch.arange(start_pos, start_pos + s, device=x.device)
+        pid = page_table[:, t // ps].long()                 # (B, S)
+        off = (t % ps)[None].expand(b, s)
+        ck.index_put_((pid, off), kc)
+        cv.index_put_((pid, off), vc)
+        total = torch.full((b,), start_pos + s, dtype=torch.int32,
+                           device=x.device)
+        o = ops.paged_attention_prefill(
+            q, ck, cv, page_table, total, q_offset=start_pos).to(x.dtype)
+    else:
+        alloc = ck.shape[1]
+        if s <= alloc:
+            ck[:, :s] = kc
+            cv[:, :s] = vc
+        else:  # ring: keep the last `alloc` tokens at their decode slots
+            slots = torch.arange(s - alloc, s, device=x.device) % alloc
+            ck[:, slots] = kc[:, s - alloc:]
+            cv[:, slots] = vc[:, s - alloc:]
+        o = chunked_causal_attention(q, k, v, causal=True, window=window,
+                                     chunk=chunk)
+    out = _wo_project(p, o, num_heads, head_dim, accum)
+    return out, cache
+
+
+def init_kv_cache(batch: int, max_len: int, kv_heads: int, head_dim: int,
+                  dtype=torch.float32, device=None) -> Dict[str, torch.Tensor]:
+    shape = (batch, max_len, kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(
+    p: Dict,
+    x: torch.Tensor,                      # (B, 1, D)
+    cache: Dict[str, torch.Tensor],
+    cache_len,                            # scalar or (B,) int: #valid positions
+    *,
+    num_heads: int,
+    kv_heads: int,
+    head_dim: int,
+    window: Optional[int] = None,
+    rope_theta: float = 10000.0,
+    use_rope: bool = True,
+    page_table: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode; writes the new K/V into the cache in place.
+
+    ``cache_len`` per row: each row writes at its own slot and masks
+    scores past its own length.  With ``page_table`` the cache is a pool
+    and attention walks the table with the fused decode kernel."""
+    b = x.shape[0]
+    cache_len = torch.as_tensor(cache_len, device=x.device).reshape(-1)
+    cache_len = cache_len.expand(b).to(torch.int64)
+    paged = page_table is not None
+    if paged and window is not None:
+        raise NotImplementedError(
+            "attention_decode: sliding-window attention over a paged KV "
+            f"cache is not implemented (window={window} with page_table) — "
+            "SWA uses contiguous ring caches; drop the window or use a "
+            "contiguous cache")
+    ck, cv = cache["k"], cache["v"]
+    page_size = ck.shape[1]
+    max_len = page_table.shape[1] * page_size if paged else ck.shape[1]
+    ring = (not paged) and window is not None and max_len <= window
+    q = _split_heads(dense(p["wq"], x), num_heads)          # (B,1,H,dh)
+    knew = _split_heads(dense(p["wk"], x), kv_heads)
+    vnew = _split_heads(dense(p["wv"], x), kv_heads)
+    pos = cache_len[:, None]                                # (B, 1)
+    if use_rope:
+        q = apply_rope(q, pos, theta=rope_theta)
+        knew = apply_rope(knew, pos, theta=rope_theta)
+    if paged:
+        pid = torch.gather(page_table.long(), 1,
+                           (cache_len // page_size)[:, None])[:, 0]
+        off = cache_len % page_size
+        ck.index_put_((pid, off), knew[:, 0].to(ck.dtype))
+        cv.index_put_((pid, off), vnew[:, 0].to(cv.dtype))
+        o32 = ops.paged_attention_decode(
+            q[:, 0], knew[:, 0], vnew[:, 0], ck, cv, page_table, cache_len)
+        o = dense(p["wo"], o32.to(x.dtype).reshape(b, 1, num_heads * head_dim))
+        return o, cache
+    rows = torch.arange(b, device=x.device)
+    write_pos = cache_len % max_len if ring else cache_len
+    ck[rows, write_pos] = knew[:, 0].to(ck.dtype)
+    cv[rows, write_pos] = vnew[:, 0].to(cv.dtype)
+
+    g = num_heads // kv_heads
+    qg = q.reshape(b, 1, kv_heads, g, head_dim)
+    scores = _gqa_scores(qg, ck) / math.sqrt(head_dim)      # (B,K,G,1,S)
+    kpos = torch.arange(ck.shape[1], device=x.device)[None, :]
+    clen = cache_len[:, None]
+    valid = kpos <= clen
+    if window is not None and not ring:
+        valid &= kpos > clen - window
+    scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    o = _gqa_values(w, cv).to(x.dtype)                      # (B,1,K,G,dh)
+    o = dense(p["wo"], o.reshape(b, 1, num_heads * head_dim))
+    return o, cache

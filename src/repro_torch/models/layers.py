@@ -1,0 +1,126 @@
+"""Primitive layers: dense, rmsnorm, embeddings, rotary — torch port.
+
+Counterpart of ``src/repro/models/layers.py``.  Params are nested dicts
+of tensors with the reference's leaf names ("kernel", "bias", "scale",
+"embedding"); matmul kernels are (in, out).
+
+Matmuls accumulate in fp32 like the reference's
+``preferred_element_type=float32``: a bf16 ``torch.matmul`` would round
+its output to bf16, so dense products widen their operands to fp32 first
+(products of bf16 values are exact in fp32).  ``matmul`` is the one
+sparse-execution dispatch point: a packed ``BSRWeight`` goes to
+``kernels.ops.bsr_matmul`` (the Hopper kernel on the card).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core.packing import BSRWeight
+from repro_torch.kernels import ops
+from repro_torch.kernels.epilogue import apply_epilogue, make_epilogue
+
+__all__ = [
+    "matmul", "dense", "dense_init", "rmsnorm", "rmsnorm_init",
+    "embed_init", "embed_lookup", "unembed_logits",
+    "rope_frequencies", "apply_rope", "truncated_normal",
+]
+
+
+def truncated_normal(shape, stddev: float, dtype, *, generator: torch.Generator,
+                     device) -> torch.Tensor:
+    """N(0, 1) truncated to [-2, 2], times ``stddev``: uniforms from
+    ``generator`` on ``device`` through the inverse normal CDF, in fp32,
+    cast to ``dtype``."""
+    lo, hi = 0.022750131948179195, 0.9772498680518208   # Phi(-2), Phi(2)
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=device)
+    x = torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0) * math.sqrt(2.0)
+    return (x.clamp_(-2.0, 2.0) * stddev).to(dtype)
+
+
+def dense_init(in_dim: int, out_dim: int, *, generator, device,
+               use_bias: bool = False, dtype=torch.float32,
+               stddev: Optional[float] = None) -> Dict[str, torch.Tensor]:
+    stddev = stddev if stddev is not None else 1.0 / math.sqrt(in_dim)
+    p = {"kernel": truncated_normal((in_dim, out_dim), stddev, dtype,
+                                    generator=generator, device=device)}
+    if use_bias:
+        p["bias"] = torch.zeros((out_dim,), dtype=dtype, device=device)
+    return p
+
+
+def matmul(x: torch.Tensor, w, *, accum=torch.float32, epilogue=None) -> torch.Tensor:
+    """x (..., K) @ w (K, N) -> (..., N) in ``accum``, with the fused
+    epilogue.  A packed leaf runs the BSR kernel; a dense leaf is an fp32
+    ``torch.matmul`` followed by the same epilogue op order."""
+    if isinstance(w, BSRWeight):
+        return ops.bsr_matmul(x, w, epilogue=epilogue).to(accum)
+    y = torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(accum)
+    return apply_epilogue(y, epilogue)
+
+
+def dense(p: Dict, x: torch.Tensor, *, accum=torch.float32,
+          activation: Optional[str] = None,
+          multiplier: Optional[torch.Tensor] = None,
+          residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Matmul with the fused tail ``act(y + bias) * multiplier +
+    residual``; returns x's dtype."""
+    epi = make_epilogue(bias=p.get("bias"), activation=activation,
+                        multiplier=multiplier, residual=residual)
+    return matmul(x, p["kernel"], accum=accum, epilogue=epi).to(x.dtype)
+
+
+def rmsnorm_init(dim: int, dtype, device) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def embed_init(vocab: int, dim: int, *, generator, device,
+               dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    return {"embedding": truncated_normal((vocab, dim), 1.0, dtype,
+                                          generator=generator, device=device)}
+
+
+def embed_lookup(p, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    """(B, S) int -> (B, S, D)."""
+    table = p["embedding"]
+    return table[tokens.long()].to(dtype or table.dtype)
+
+
+def unembed_logits(p, x: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) -> (B, S, V) fp32 logits from fp32 accumulation."""
+    table = p["embedding"]
+    return torch.matmul(x.to(torch.float32), table.to(torch.float32).T)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def _rope_rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation: x (..., dh); sin/cos broadcast to (..., dh/2)."""
+    half = x.shape[-1] // 2
+    xf1 = x[..., :half].to(torch.float32)
+    xf2 = x[..., half:].to(torch.float32)
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x (B, S, H, dh), positions (B, S) -> rotated x."""
+    inv = rope_frequencies(x.shape[-1], theta, device=x.device)
+    ang = positions.to(torch.float32)[..., None] * inv      # (B, S, dh/2)
+    sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
+    return _rope_rotate(x, sin, cos)

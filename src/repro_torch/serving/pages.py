@@ -1,0 +1,379 @@
+"""Paged KV-cache pool: fixed-size pages, per-sequence page tables,
+ref-counted sharing, and a content-hash prefix index.
+
+The physical cache for every attention layer is one pool array
+``(num_pages, page_size, kv_heads, head_dim)`` shared by all sequences;
+a sequence owns an ordered list of page ids (its *page table*) and its
+logical positions ``[0, cache_len)`` live at
+``pool[table[t // page_size], t % page_size]``.  The pool is the device
+side; ``PagePool`` here is the host-side allocator that hands pages to
+sequences as they join and reclaims them as they finish (DESIGN.md §9).
+
+Attention *walks* page tables without ever materializing a
+logical view, so the same physical page may appear in many tables for
+free.  ``PagePool`` therefore keeps a per-page reference count:
+:meth:`alloc` hands out pages at refcount 1, :meth:`share` maps an
+existing page into another table, and :meth:`free` releases one
+reference — the page returns to the free list only when the last holder
+drops it.  :meth:`cow` implements copy-on-write claims for writers that
+do not exclusively own a page.  ``PrefixIndex`` builds the sharing
+policy on top: a chain-hash index over page-aligned full prompt blocks
+so N requests with a common prefix prefill it once (DESIGN.md §12).
+
+Page id 0 is reserved as the *null page*: free decode slots point their
+whole table at it, so their (discarded) decode writes land in a scratch
+page instead of corrupting a live sequence.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Dict, Iterable, List, Optional, Sequence
+
+import numpy as np
+
+__all__ = ["NULL_PAGE", "PagePool", "PrefixIndex"]
+
+NULL_PAGE = 0
+
+
+class PagePool:
+    """Free-list allocator over ``num_pages`` fixed-size pages with
+    per-page reference counts.
+
+    Pages are recycled LIFO — a page freed by a finished sequence is the
+    next one handed out, keeping the working set of the physical pool as
+    small as the live traffic allows.  Conservation invariant (checked
+    by tests/test_page_pool_props.py every trace step):
+
+        free_pages + #{pages with refcount > 0} == num_pages - 1
+    """
+
+    def __init__(self, num_pages: int, page_size: int):
+        if num_pages < 2:
+            raise ValueError("need >= 2 pages (page 0 is the null page)")
+        if page_size < 1:
+            raise ValueError("page_size must be >= 1")
+        self.num_pages = num_pages
+        self.page_size = page_size
+        # LIFO free list; page 0 (null) is never handed out
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._ref: List[int] = [0] * num_pages
+        self.ref_high_water = 0   # max refcount any page ever reached
+        self.cow_copies = 0       # copy-on-write page claims served
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return (self.num_pages - 1) - len(self._free)
+
+    def refcount(self, pid: int) -> int:
+        return self._ref[pid]
+
+    def live_refs(self) -> int:
+        """Total outstanding references (a shared page counts once per
+        table it appears in)."""
+        return sum(self._ref)
+
+    def pages_for(self, num_tokens: int) -> int:
+        """Pages needed to hold ``num_tokens`` cache slots."""
+        return max(1, -(-num_tokens // self.page_size))
+
+    def can_alloc(self, num_tokens: int) -> bool:
+        return self.pages_for(num_tokens) <= len(self._free)
+
+    def alloc(self, num_tokens: int) -> List[int]:
+        """Claim pages for ``num_tokens`` slots; raises if the pool can't
+        cover the request (callers gate on :meth:`can_alloc` first)."""
+        return self.alloc_pages(self.pages_for(num_tokens))
+
+    def alloc_pages(self, n: int) -> List[int]:
+        """Claim ``n`` fresh pages, each at refcount 1."""
+        if n > len(self._free):
+            raise RuntimeError(
+                f"page pool exhausted: need {n}, have {len(self._free)}")
+        out = [self._free.pop() for _ in range(n)]
+        for pid in out:
+            self._ref[pid] = 1
+        if out and self.ref_high_water < 1:
+            self.ref_high_water = 1
+        return out
+
+    def share(self, pages: Sequence[int]) -> None:
+        """Add one reference per page — the caller is mapping an already
+        live page into another table (prefix-cache hit, index insert)."""
+        for pid in pages:
+            self._check_live(pid, "share")
+            self._ref[pid] += 1
+            if self._ref[pid] > self.ref_high_water:
+                self.ref_high_water = self._ref[pid]
+
+    def free(self, pages: Sequence[int]) -> None:
+        """Release one reference per page; a page returns to the free
+        list only when its last reference drops (refcount hits 0)."""
+        for pid in pages:
+            self._check_live(pid, "free")
+            self._ref[pid] -= 1
+            if self._ref[pid] == 0:
+                self._free.append(pid)
+
+    def cow(self, pid: int) -> int:
+        """Copy-on-write claim: return a page id the caller may write.
+
+        Exclusively owned pages (refcount 1) are returned as-is — no
+        copy needed.  Shared pages transfer the caller's reference to a
+        fresh page (old page refcount -1, new page refcount 1); the
+        caller must copy the device contents and repoint its table.
+        """
+        self._check_live(pid, "cow")
+        if self._ref[pid] == 1:
+            return pid
+        new = self.alloc_pages(1)[0]
+        self._ref[pid] -= 1
+        self.cow_copies += 1
+        return new
+
+    def _check_live(self, pid: int, op: str) -> None:
+        if pid == NULL_PAGE:
+            raise ValueError(f"cannot {op} the null page")
+        if not (0 < pid < self.num_pages):
+            raise ValueError(f"{op} of invalid page {pid}")
+        if self._ref[pid] <= 0:
+            raise ValueError(f"{op} of unreferenced page {pid} "
+                             "(double free?)")
+
+
+@dataclasses.dataclass
+class _IndexEntry:
+    page: int                 # physical page holding this block's K/V
+    parent: Optional[int]     # chain key of the previous block (None = root)
+    children: int = 0         # cached continuations (leaf iff 0)
+
+
+class PrefixIndex:
+    """Content-hash index over page-aligned full prompt-prefix blocks.
+
+    The key of block ``i`` is a *chain* hash — ``hash((key_{i-1},
+    tokens[i·ps:(i+1)·ps]))`` — so a block can only match behind its
+    exact full prefix; equal page content at different positions never
+    aliases.  Each entry holds ONE pool reference on its page, taken at
+    :meth:`insert`: cached K/V survives the request that computed it
+    (retire → readmit reuse) until evicted.
+
+    Eviction is leaf-first LRU: only entries with no cached continuation
+    (``children == 0``) and no other reference holder (refcount 1) may
+    drop, so chains stay contiguous from the root and a page is never
+    reclaimed while any table still maps it.  Active sharers always pin
+    ancestors before descendants (matching is prefix-contiguous), so the
+    evictable entries form whole subtrees and :meth:`evictable_pages` is
+    exactly what leaf-first eviction can realize.
+
+    **Fault tolerance (DESIGN.md §13).**  Alongside the entries the
+    index keeps ``_owned`` — a ledger of the pool references it has
+    taken, keyed by page id.  Entries are the *lookup* structure (and
+    may be corrupted by bugs or bit flips); the ledger is the
+    *accounting* ground truth, mutated only at ref-take/ref-release.
+    :meth:`verify` cross-checks the two (plus chain links, children
+    counts, and pool refcounts) and :meth:`clear` releases by ledger —
+    so a corrupted index can always be dropped without leaking or
+    double-freeing a single page, and the engine keeps serving without
+    the cache instead of handing poisoned page ids to new tables.
+    :meth:`drop_pages` quarantines entries touching a failed request's
+    pages (plus their descendant chains) the same way.
+    """
+
+    def __init__(self, pool: PagePool):
+        self.pool = pool
+        self._entries: "OrderedDict[int, _IndexEntry]" = OrderedDict()
+        self._owned: Dict[int, int] = {}     # page -> refs this index holds
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @staticmethod
+    def _chain_key(parent: Optional[int], block: np.ndarray) -> int:
+        return hash((parent, np.ascontiguousarray(block, np.int32).tobytes()))
+
+    def match(self, prompt: np.ndarray) -> List[int]:
+        """Pages of the longest cached page-aligned *proper* prefix of
+        ``prompt``, capped at ``(len-1) // page_size`` blocks so the
+        uncached tail is never empty — prefill must still run at least
+        one token to produce the first-token logits, and every position
+        the request will ever write (tail + decode) stays past the
+        shared region, which is what makes COW unreachable on the
+        standard path (DESIGN.md §12).  Hit entries are touched MRU."""
+        prompt = np.asarray(prompt).reshape(-1)
+        ps = self.pool.page_size
+        out: List[int] = []
+        keys: List[int] = []
+        key: Optional[int] = None
+        for i in range((len(prompt) - 1) // ps):
+            key = self._chain_key(key, prompt[i * ps:(i + 1) * ps])
+            entry = self._entries.get(key)
+            if entry is None:
+                break
+            out.append(entry.page)
+            keys.append(key)
+        for k in keys:
+            self._entries.move_to_end(k)
+        return out
+
+    def insert(self, prompt: np.ndarray, pages: Sequence[int]) -> int:
+        """Register every full page-aligned block of ``prompt`` (block
+        ``i`` lives in ``pages[i]`` of the request's table), taking one
+        pool reference per newly indexed page.  Blocks already indexed
+        (the request's own hits, or a same-content sibling) are touched
+        MRU and skipped.  Returns the number of new entries."""
+        prompt = np.asarray(prompt).reshape(-1)
+        ps = self.pool.page_size
+        key: Optional[int] = None
+        new = 0
+        for i in range(len(prompt) // ps):
+            parent = key
+            key = self._chain_key(key, prompt[i * ps:(i + 1) * ps])
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                continue
+            self._take(int(pages[i]))
+            self._entries[key] = _IndexEntry(page=int(pages[i]), parent=parent)
+            pe = self._entries.get(parent) if parent is not None else None
+            if pe is not None:
+                pe.children += 1
+            new += 1
+        return new
+
+    def evictable_pages(self, exclude: Iterable[int] = ()) -> int:
+        """Pages the index could return to the pool right now: indexed
+        pages nobody else holds (refcount 1) and not pinned by
+        ``exclude`` (pages promised to this tick's other admissions)."""
+        ex = set(exclude)
+        return sum(1 for e in self._entries.values()
+                   if self.pool.refcount(e.page) == 1 and e.page not in ex)
+
+    def evict(self, n_pages: int, exclude: Iterable[int] = ()) -> int:
+        """Drop LRU leaf entries until ``n_pages`` pages returned to the
+        free list (or nothing evictable remains).  Returns pages freed."""
+        ex = set(exclude)
+        freed = 0
+        while freed < n_pages:
+            victim = None
+            for k, e in self._entries.items():       # OrderedDict: LRU first
+                if (e.children == 0 and e.page not in ex
+                        and self.pool.refcount(e.page) == 1):
+                    victim = k
+                    break
+            if victim is None:
+                break
+            entry = self._entries.pop(victim)
+            if entry.parent is not None:
+                pe = self._entries.get(entry.parent)
+                if pe is not None:
+                    pe.children -= 1
+            self._release(entry.page)
+            self.evictions += 1
+            freed += 1
+        return freed
+
+    # -- reference ledger (fault-tolerant accounting) ----------------------
+
+    def _take(self, page: int) -> None:
+        self.pool.share([page])
+        self._owned[page] = self._owned.get(page, 0) + 1
+
+    def _release(self, page: int) -> None:
+        """Release one index reference *if the ledger holds one* — the
+        ledger, not the (possibly corrupted) entry field, decides what
+        may be freed, so a scrambled entry can never double-free."""
+        if self._owned.get(page, 0) > 0:
+            self._owned[page] -= 1
+            if not self._owned[page]:
+                del self._owned[page]
+            self.pool.free([page])
+
+    def verify(self) -> List[str]:
+        """Self-check: cross-validate the lookup entries against the
+        reference ledger and the pool.  Returns a list of inconsistency
+        descriptions (empty == healthy).  Checked invariants:
+
+        * every entry's page is a valid, non-null, live (refcount >= 1)
+          pool page,
+        * the multiset of entry pages equals the ledger exactly (one
+          entry per owned reference — no orphan refs, no unref'd entry),
+        * every non-root parent link resolves to an existing entry,
+        * stored ``children`` counts match the actual link structure.
+
+        The engine runs this each step; on any report it drops the whole
+        cache via :meth:`clear` (ledger-exact, so no page leaks) and
+        keeps serving uncached rather than mapping poisoned pages into
+        new tables."""
+        issues: List[str] = []
+        counts: Dict[int, int] = {}
+        actual_children: Dict[int, int] = {}
+        for e in self._entries.values():
+            if e.parent is not None:
+                actual_children[e.parent] = \
+                    actual_children.get(e.parent, 0) + 1
+        for key, e in self._entries.items():
+            counts[e.page] = counts.get(e.page, 0) + 1
+            if not (0 < e.page < self.pool.num_pages):
+                issues.append(f"entry {key}: invalid page id {e.page}")
+            elif self.pool.refcount(e.page) < 1:
+                issues.append(f"entry {key}: page {e.page} is unreferenced")
+            if e.parent is not None and e.parent not in self._entries:
+                issues.append(f"entry {key}: dangling parent link")
+            want = actual_children.get(key, 0)
+            if e.children != want:
+                issues.append(f"entry {key}: children count {e.children} "
+                              f"!= actual {want}")
+        if counts != self._owned:
+            extra = {p: c for p, c in counts.items()
+                     if self._owned.get(p, 0) != c}
+            missing = {p: c for p, c in self._owned.items()
+                       if counts.get(p, 0) != c}
+            issues.append(f"entry pages diverge from owned-ref ledger "
+                          f"(entries {extra} vs ledger {missing})")
+        return issues
+
+    def drop_pages(self, pages: Iterable[int]) -> int:
+        """Quarantine: remove every entry whose page is in ``pages`` —
+        plus all descendant entries, so chains stay contiguous from the
+        root — releasing their ledger references.  Used when a request
+        FAILS the non-finite guard: its pages' cached K/V is suspect and
+        must never be mapped into a later table.  Returns entries
+        dropped."""
+        targets = {int(p) for p in pages}
+        doomed = {k for k, e in self._entries.items() if e.page in targets}
+        grew = True
+        while grew:          # descendants of doomed entries go too
+            grew = False
+            for k, e in self._entries.items():
+                if k not in doomed and e.parent in doomed:
+                    doomed.add(k)
+                    grew = True
+        for k in doomed:
+            e = self._entries.pop(k)
+            pe = self._entries.get(e.parent) if e.parent is not None else None
+            if pe is not None:
+                pe.children -= 1
+            self._release(e.page)
+        return len(doomed)
+
+    def clear(self) -> int:
+        """Release every index reference (pages still mapped by active
+        requests stay alive through the requests' own refs).  Returns
+        the number of entries dropped.  Frees by the *ledger*, not the
+        entries, so it is safe to call on a corrupted index — exactly
+        the references taken are returned, never more or less."""
+        n = len(self._entries)
+        for page, cnt in list(self._owned.items()):
+            self.pool.free([page] * cnt)
+        self._owned.clear()
+        self._entries.clear()
+        return n
+
+    def stats(self) -> Dict[str, int]:
+        return {"entries": len(self._entries), "evictions": self.evictions}

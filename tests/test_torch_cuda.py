@@ -1,0 +1,87 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: the kernels are built with nvcc and run only on an
+NVIDIA card (sm_90a), so these tests skip where there is none.  Run them
+on the card with ``PYTHONPATH=src python -m pytest -q -m cuda
+tests/test_torch_cuda.py``; ``chip_smoke.py`` runs the same comparisons
+at the main path's shapes.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import BlockingSpec, pack_bsr
+from repro_torch.kernels import Epilogue, launch_counts, ops, reset_launch_counts
+from repro_torch.kernels.block_sparse_matmul import bsr_matmul_plain
+from repro_torch.kernels.paged_attention import (
+    paged_attention_decode_plain,
+    paged_attention_prefill_plain,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the hand-written kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / max(1.0, float(want.float().abs().max())))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("m", [1, 4, 64, 200])
+def test_bsr_kernel_matches_plain(card, m, dtype, tol):
+    g = torch.Generator(device=card).manual_seed(m)
+    k, n, bk, bn = 300, 200, 64, 64
+    w = torch.randn((k, n), generator=g, device=card).to(dtype)
+    alive = torch.rand((5, 4), generator=g, device=card) < 0.5
+    alive[:, 0] = False                                     # all-pruned column
+    mask = alive.repeat_interleave(bk, 0).repeat_interleave(bn, 1)[:k, :n]
+    bsr = pack_bsr(w, BlockingSpec(bk, bn), mask=mask)
+    x = torch.randn((m, k), generator=g, device=card).to(dtype)
+    epi = Epilogue(bias=torch.randn(n, generator=g, device=card).to(dtype),
+                   activation="silu",
+                   multiplier=torch.randn((m, n), generator=g, device=card).to(dtype),
+                   residual=torch.randn((m, n), generator=g, device=card).to(dtype))
+    reset_launch_counts()
+    got = ops.bsr_matmul(x, bsr, epilogue=epi)
+    torch.cuda.synchronize()
+    assert launch_counts["bsr_matmul"] == 1
+    assert _rel_err(got, bsr_matmul_plain(x, bsr, epilogue=epi)) <= tol
+
+
+@pytest.mark.parametrize("q_offset", [0, 8])
+def test_paged_kernels_match_plain(card, q_offset):
+    g = torch.Generator(device=card).manual_seed(q_offset)
+    b, h, kvh, dh, ps, mp = 3, 8, 2, 64, 8, 6
+    pool = torch.full((b * mp + 1, ps, kvh, dh), math.nan, device=card)
+    kp, vp = pool.clone(), pool.clone()
+    tbl = torch.randperm(b * mp, generator=g, device=card).reshape(b, mp) + 1
+    clen = torch.tensor([0, 11, 40], dtype=torch.int32, device=card)
+    tbl[0] = 0                                             # parked on null page
+    for r in range(b):
+        for t in range(int(clen[r])):
+            kp[tbl[r, t // ps], t % ps] = torch.randn((kvh, dh), generator=g, device=card)
+            vp[tbl[r, t // ps], t % ps] = torch.randn((kvh, dh), generator=g, device=card)
+    tbl = tbl.to(torch.int32)
+    q = torch.randn((b, h, dh), generator=g, device=card)
+    kn = torch.randn((b, kvh, dh), generator=g, device=card)
+    vn = torch.randn((b, kvh, dh), generator=g, device=card)
+    got = ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen)
+    want = paged_attention_decode_plain(q, kn, vn, kp, vp, tbl, clen)
+    assert torch.isfinite(got).all() and _rel_err(got, want) <= 2e-5
+    s = 40 - q_offset
+    lens = torch.tensor([0, 11, 40], dtype=torch.int32, device=card).clamp(min=0)
+    qp = torch.randn((b, s, h, dh), generator=g, device=card)
+    got = ops.paged_attention_prefill(qp, kp, vp, tbl, lens, q_offset=q_offset)
+    want = paged_attention_prefill_plain(qp, kp, vp, tbl, lens, q_offset=q_offset)
+    assert torch.isfinite(got).all() and _rel_err(got, want) <= 2e-5
+    np.testing.assert_array_equal(got[0].cpu().numpy(), 0.0)
