@@ -6,26 +6,39 @@
 Phases, any failure ends the run with a non-zero exit code:
 
 1. the card's name and power limit, torch and CUDA versions; build the
-   hand-written CUDA kernels (one nvcc per source, in parallel);
+   five hand-written CUDA kernels (one nvcc per source, in parallel);
 2. every kernel against its plain PyTorch version on the card, fp32 and
    bf16, with the tolerances below (BSR matmul: M 1/4/64/200, the
-   model's weight shapes and an odd one, 128x128 and 32x32 blocks, an
-   all-pruned column, every epilogue the model uses; paged decode and
-   prefill: page sizes 4/8/16, GQA 16/16, 8/2, 4/1, ragged lengths
-   including 0, NaN in every page no row owns, q_offset 0/ps/3ps);
-3. the main path: qwen1.5-0.5b at full width (24 layers, d_model 1024,
-   16 heads, d_ff 2816, vocab 151936) from a seeded generator,
-   knapsack-pruned at 0.75 with 128x128 blocks, BSR-packed, served
-   through ``ServingEngine`` — (a) in fp32, every stream token-identical
-   to its solo decode with at least one prefix-cache hit; (b) in the
-   config's bf16, every stream full length with finite logits.  Launch
-   counts are zeroed just before run (a) and read just after it;
-4. one ``kernels`` JSON line: launches on the main path, error against
-   the plain version at the main path's shapes (held to the phase-2
-   tolerances), the card's busy share over run (a) from
-   ``torch.profiler``, and the kernel's, the plain version's and one
-   PyTorch library call's time at the main path's shapes beside the
-   least time the card could take (``bound_ms``).
+   models' weight shapes and an odd one, 128x128 and 32x32 blocks, an
+   all-pruned column, every epilogue the models use; BSR planes: E
+   1/3/32, M 1/8/47/200, granite's expert shapes and an odd one, a dead
+   and a fully dense plane; paged decode and prefill: page sizes 4/8/16,
+   GQA 16/16, 16/8, 8/2, 4/1, ragged lengths including 0, NaN in every
+   page no row owns, q_offset 0/ps/3ps; structure norms: qwen's and
+   granite's expert weights and an odd one, 128 and 32 tiles), and the
+   MoE router's logits held to be the same for a token alone and in a
+   batch (reported);
+3. two main paths, each served through ``ServingEngine`` at full width
+   from a seeded generator, knapsack-pruned at 0.75 with 128x128 blocks
+   and BSR-packed, on the same traffic: qwen1.5-0.5b (24 layers, d_model
+   1024, 16 heads, d_ff 2816, vocab 151936) and granite-moe-1b-a400m (24
+   layers, d_model 1024, 16 heads / 8 KV heads, 32 experts top-8 of
+   d_ff 512, vocab 49155).  For each, (a) in fp32 every stream is
+   token-identical to its solo decode with at least one prefix-cache hit
+   (granite at capacity factor E/k = 4.0, where no slot can drop; the
+   config's 1.25 drops slots by design, so a prefix-hit tail would route
+   unlike the solo prompt); (b) in the config's bf16 (granite at its own
+   1.25) every stream reaches full length with finite logits.  Launch
+   counts are zeroed just before each run (a) and read just after it;
+   every kernel of the path must have run, and each BSR kernel exactly
+   once per weight per forward pass (granite: 3 planes launches per MoE
+   layer per decode tick and per prefill, so no loop over experts);
+4. one ``kernels`` JSON line with all five kernels: launches over the
+   two runs (a), error against the plain version at the main paths'
+   shapes (held to the phase-2 tolerances), the card's busy share over
+   each run (a) from ``torch.profiler``, and the kernel's, the plain
+   version's and one PyTorch library call's time at the main paths'
+   shapes beside the least time the card could take (``bound_ms``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository beside it, the script exits non-zero and prints
@@ -244,7 +257,7 @@ def check_attention(torch, dev) -> float:
     n_dec = n_pre = 0
     dh = 64
     for ps in (4, 8, 16):
-        for h, kvh in ((16, 16), (8, 2), (4, 1)):
+        for h, kvh in ((16, 16), (16, 8), (8, 2), (4, 1)):
             for dtype in (torch.float32, torch.bfloat16):
                 g = torch.Generator(device=dev).manual_seed(ps * 100 + h + kvh)
                 # decode: ragged cache_len including 0
@@ -304,22 +317,161 @@ def check_attention(torch, dev) -> float:
     return worst
 
 
+def random_planes(torch, g, dev, e, k, n, bk, bn, dtype):
+    """A BSRPlanes stack of E random planes: with E > 1 plane 0 is dead
+    and plane 1 fully dense, the rest about 30 % live with an all-pruned
+    block column."""
+    from repro_torch.core import BlockingSpec, BSRPlanes, pack_bsr
+    ebk, ebn = min(bk, k), min(bn, n)
+    gk, gn = -(-k // ebk), -(-n // ebn)
+    planes = []
+    for p in range(e):
+        w = torch.randn((k, n), generator=g, device=dev).to(dtype)
+        alive = torch.rand((gk, gn), generator=g, device=dev) < 0.3
+        alive[:, 0] = False
+        alive[0, -1] = True
+        if e > 1 and p == 0:
+            alive[:] = False
+        if e > 1 and p == 1:
+            alive[:] = True
+        mask = alive.repeat_interleave(ebk, 0).repeat_interleave(ebn, 1)
+        planes.append(pack_bsr(w, BlockingSpec(bk, bn), mask=mask[:k, :n]))
+    return BSRPlanes.from_planes(tuple(planes), shape=(e, k, n))
+
+
+# the expert FFN uses none and silu+mult; bias and res cover the rest
+PLANE_EPIS = ["none", "silu+mult", "res", "bias"]
+# planes sweep: E, M, (K, N) (granite's experts_up/gate and experts_down,
+# a ragged one), blocks
+PLANE_SWEEP = ((1, 3, 32), (1, 8, 47, 200),
+               ((1024, 512), (512, 1024), (100, 36)), ((128, 128), (32, 32)))
+# norms sweep: qwen's gate projection, granite's experts_up as (E * K, N)
+# (with bk | K its tiles are the per-plane tiles), a ragged shape; tiles
+NORMS_SWEEP = (((1024, 2816), (32 * 1024, 512), (100, 36)), (128, 32))
+
+
+def check_planes(torch, dev) -> float:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.block_sparse_matmul import bsr_planes_matmul_plain
+
+    worst = 0.0
+    i = 0
+    es, ms, shapes, blocks = PLANE_SWEEP
+    for e in es:
+        for (k, n) in shapes:
+            for (bk, bn) in blocks:
+                for dtype in (torch.float32, torch.bfloat16):
+                    g = torch.Generator(device=dev).manual_seed(5000 + i)
+                    planes = random_planes(torch, g, dev, e, k, n, bk, bn, dtype)
+                    for m in ms:
+                        spec = PLANE_EPIS[i % len(PLANE_EPIS)]
+                        i += 1
+                        x = torch.randn((e, m, k), generator=g, device=dev).to(dtype)
+                        epi = make_epilogue(torch, spec, m, n, dtype, g, dev)
+                        if epi is not None:
+                            epi = epi.map_operands(lambda a: torch.randn(
+                                (e, m, n), generator=g, device=dev).to(dtype))
+                        got = ops.bsr_planes_matmul(x, planes, epilogue=epi)
+                        want = bsr_planes_matmul_plain(x, planes, epilogue=epi)
+                        torch.cuda.synchronize()
+                        err = rel_err(got, want)
+                        ok = err <= TOL[dname(dtype)] and got.dtype == dtype
+                        REPORT["checks"].append(dict(
+                            kernel="bsr_planes_matmul", e=e, m=m, k=k, n=n,
+                            bk=bk, bn=bn, dtype=dname(dtype), epilogue=spec,
+                            plane_nnz=list(planes.plane_nnz), rel_err=err,
+                            ok=ok))
+                        if not ok:
+                            raise AssertionError(
+                                f"bsr_planes_matmul E={e} M={m} K={k} N={n} "
+                                f"blocks {bk}x{bn} {dname(dtype)} {spec}: "
+                                f"error {err:.3g} > {TOL[dname(dtype)]}")
+                        worst = max(worst, err)
+    log(f"  bsr_planes_matmul: {i} cases OK (dead and fully dense planes), "
+        f"worst normalized error {worst:.3g}")
+    return worst
+
+
+def check_norms(torch, dev) -> float:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.structure_norms import structure_norms_plain
+
+    worst = 0.0
+    i = 0
+    shapes, tiles = NORMS_SWEEP
+    for (k, n) in shapes:
+        for blk in tiles:
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.Generator(device=dev).manual_seed(7000 + i)
+                i += 1
+                w = torch.randn((k, n), generator=g, device=dev).to(dtype)
+                got = ops.structure_norms(w, blk, blk)
+                want = structure_norms_plain(w, blk, blk)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                ok = err <= TOL["float32"] and got.dtype == torch.float32
+                REPORT["checks"].append(dict(
+                    kernel="structure_norms", k=k, n=n, bk=blk, bn=blk,
+                    dtype=dname(dtype), rel_err=err, ok=ok))
+                if not ok:
+                    raise AssertionError(
+                        f"structure_norms ({k}, {n}) tiles {blk} "
+                        f"{dname(dtype)}: error {err:.3g} > {TOL['float32']}")
+                worst = max(worst, err)
+    log(f"  structure_norms: {i} cases OK, worst normalized error "
+        f"{worst:.3g} (fp32 sums in both input dtypes, tolerance "
+        f"{TOL['float32']})")
+    return worst
+
+
+def check_router(torch, dev) -> dict:
+    """Whether a token's router logits are bit-identical alone, in a
+    decode batch of 4 and in a 64-token prompt (granite's widths).
+    Reported, not gated: run (a)'s stream == solo check is the gate."""
+    from repro_torch.models.moe import router_logits
+    g = torch.Generator(device=dev).manual_seed(9)
+    w = torch.randn((1024, 32), generator=g, device=dev) / 32
+    x = torch.randn((64, 1024), generator=g, device=dev)
+    full = router_logits(x[None], w)[0]
+    same = {t: bool(torch.equal(router_logits(x[None, :t], w)[0], full[:t]))
+            for t in (1, 4, 17)}
+    same["1_each"] = all(bool(torch.equal(router_logits(x[None, j:j + 1], w)[0],
+                                          full[j:j + 1])) for j in range(8))
+    REPORT["router_batch_independent"] = same
+    log(f"  router logits bit-identical alone and in batches of 4/17/64: "
+        f"{same} (reported)")
+    return same
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the main paths
 # ---------------------------------------------------------------------------
 
+def epilogue_kind(epilogue) -> str:
+    if epilogue is None:
+        return "none"
+    return "+".join(name for name, v in (
+        ("bias", epilogue.bias), (epilogue.activation, epilogue.activation),
+        ("mult", epilogue.multiplier), ("res", epilogue.residual))
+        if v is not None)
+
+
 class Capture:
-    """Keeps copies of the kernels' inputs at the main path's shapes while
+    """Keeps copies of the kernels' inputs at a main path's shapes while
     a warm-up run of the engine goes through ``kernels.ops`` (the
     counted run goes through the untouched functions)."""
 
+    NAMES = ("bsr_matmul", "bsr_planes_matmul", "paged_attention_decode",
+             "paged_attention_prefill")
+
     def __init__(self, torch, ops):
         self.torch, self.ops = torch, ops
-        self.orig = {n: getattr(ops, n) for n in (
-            "bsr_matmul", "paged_attention_decode", "paged_attention_prefill")}
+        self.orig = {n: getattr(ops, n) for n in self.NAMES}
         self.bsr = {}
+        self.planes = {}
         self.decode = None
         self.prefill = {}
+        self.phase = "prefill"        # of the last attention call
 
     def __enter__(self):
         torch, ops, orig = self.torch, self.ops, self.orig
@@ -328,21 +480,25 @@ class Capture:
             return None if t is None else t.detach().clone()
 
         def bsr_matmul(x, bsr, *, epilogue=None):
-            kind = "none" if epilogue is None else "+".join(
-                name for name, v in (("bias", epilogue.bias),
-                                     (epilogue.activation, epilogue.activation),
-                                     ("mult", epilogue.multiplier),
-                                     ("res", epilogue.residual)) if v is not None)
             # one decode-shaped call (B, 1, D) and the longest prompt per
             # weight shape and epilogue
             phase = "decode" if x.ndim == 3 and x.shape[1] == 1 else "prefill"
-            key = (phase, bsr.shape, kind)
+            key = (phase, bsr.shape, epilogue_kind(epilogue))
             if key not in self.bsr or x.numel() > self.bsr[key][0].numel():
                 self.bsr[key] = (clone(x), bsr, None if epilogue is None else
                                  epilogue.map_operands(clone))
             return orig["bsr_matmul"](x, bsr, epilogue=epilogue)
 
+        def bsr_planes_matmul(x, planes, *, epilogue=None):
+            # the MoE layer runs after its layer's attention call
+            key = (self.phase, tuple(planes.shape), epilogue_kind(epilogue))
+            if key not in self.planes or x.numel() > self.planes[key][0].numel():
+                self.planes[key] = (clone(x), planes, None if epilogue is None
+                                    else epilogue.map_operands(clone))
+            return orig["bsr_planes_matmul"](x, planes, epilogue=epilogue)
+
         def decode(q, k_new, v_new, k_pool, v_pool, page_table, cache_len):
+            self.phase = "decode"
             ctx = int(torch.as_tensor(cache_len).sum())
             if self.decode is None or ctx > self.decode[0]:
                 self.decode = (ctx, tuple(clone(t) for t in (
@@ -352,6 +508,7 @@ class Capture:
                 q, k_new, v_new, k_pool, v_pool, page_table, cache_len)
 
         def prefill(q, k_pool, v_pool, page_table, lengths, *, q_offset=0):
+            self.phase = "prefill"
             key = q_offset > 0
             if key not in self.prefill or q.shape[1] > self.prefill[key][0].shape[1]:
                 self.prefill[key] = (clone(q), clone(k_pool), clone(v_pool),
@@ -361,6 +518,7 @@ class Capture:
                 q, k_pool, v_pool, page_table, lengths, q_offset=q_offset)
 
         ops.bsr_matmul = bsr_matmul
+        ops.bsr_planes_matmul = bsr_planes_matmul
         ops.paged_attention_decode = decode
         ops.paged_attention_prefill = prefill
         return self
@@ -386,7 +544,7 @@ def traffic(vocab: int, seed: int):
 
 def serve_once(params, cfg, prompts, gen, dev):
     import torch
-    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import RequestStatus, ServingEngine
     eng = ServingEngine(params, cfg, num_slots=4, page_size=8,
                         max_seq_len=max(len(p) for p in prompts) + gen,
                         ticks_per_sync=4, device=dev)
@@ -396,7 +554,13 @@ def serve_once(params, cfg, prompts, gen, dev):
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
-    return eng, done, time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    if len(done) != len(prompts) or any(
+            r.status is not RequestStatus.FINISHED or len(r.tokens) != gen
+            for r in done.values()):
+        raise AssertionError(f"{cfg.name}: a stream failed (non-finite "
+                             "logits) or ended short")
+    return eng, done, dt
 
 
 def device_busy(torch, params, cfg, prompts, gen, dev, wall_s):
@@ -404,15 +568,28 @@ def device_busy(torch, params, cfg, prompts, gen, dev, wall_s):
     The kernels' summed device time (one stream, so no overlap) over the
     unprofiled run's wall time is the card's busy share; the rest is host
     time (Python, launches, syncs).  Reported, not gated: a profiler that
-    shows no device time gives "not measured"."""
+    cannot start or stop, or shows no device time, gives "not measured".
+    A failure of the engine run itself ends the script."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            serve_once(params, cfg, prompts, gen, dev)
+        prof.start()
+    except Exception as exc:                    # the profiler's own failure
+        return {"busy_share": "not measured", "error": repr(exc)}
+    stop_error = None
+    try:
+        serve_once(params, cfg, prompts, gen, dev)
+    finally:
+        try:
+            prof.stop()
+        except Exception as exc:                # the profiler's own failure
+            stop_error = exc
+    if stop_error is not None:
+        return {"busy_share": "not measured", "error": repr(stop_error)}
+    try:
         avgs = prof.key_averages()
-    except Exception as exc:                    # diagnostic phase only
+    except Exception as exc:                    # the profiler's own failure
         return {"busy_share": "not measured", "error": repr(exc)}
     # device-side events only (kernels, copies): a CPU op's device time
     # repeats its kernels'
@@ -429,15 +606,27 @@ def device_busy(torch, params, cfg, prompts, gen, dev, wall_s):
                     for t, c, k in kern[:10] if t > 0]}
 
 
-def main_path(torch, dev, gpu_line):
+# launches of each BSR kernel per layer per forward pass
+PER_LAYER = {
+    "qwen1.5-0.5b": {"bsr_matmul": 7},                     # q k v o up gate down
+    "granite-moe-1b-a400m": {"bsr_matmul": 4,               # q k v o
+                             "bsr_planes_matmul": 3},       # up gate down
+}
+
+
+def main_path(torch, dev, gpu_line, arch: str, cf_a=None):
+    """Serve ``arch`` at full width: run (a) in fp32 (at capacity factor
+    ``cf_a`` for MoE) gated on stream == solo decode, run (b) in the
+    config's dtypes.  Returns (stats_a, stats_b, capture, launches)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.launch import serve
-    from repro_torch.serving import RequestStatus
 
     gen, seed = 16, 0
-    base = get_config("qwen1.5-0.5b")
+    base = get_config(arch)
     cfg_a = base.replace(param_dtype="float32", activ_dtype="float32")
+    if cf_a is not None:
+        cfg_a = cfg_a.replace(capacity_factor=cf_a)
     prompts = traffic(base.vocab, seed)
 
     t0 = time.perf_counter()
@@ -457,36 +646,48 @@ def main_path(torch, dev, gpu_line):
     emitted = sum(len(r.tokens) for r in done.values())
     ttft = sorted(eng.ttft_seconds(r) * 1e3 for r in done)
     st = eng.prefix_stats
-    stats_a = dict(tokens=emitted, seconds=dt, tok_per_s=emitted / dt,
+    passes = eng.decode_ticks + len(done)        # decode ticks + prefills
+    stats_a = dict(capacity_factor=cfg_a.capacity_factor, tokens=emitted,
+                   seconds=dt, tok_per_s=emitted / dt,
                    ttft_ms_p50=statistics.median(ttft), ttft_ms_max=ttft[-1],
                    prefix_hit_requests=st["hit_requests"],
                    pages_shared=st["pages_shared"], launches=launches,
-                   decode_ticks=eng.decode_ticks,
-                   slot_utilization=eng.slot_utilization)
+                   decode_ticks=eng.decode_ticks, forward_passes=passes,
+                   slot_utilization=eng.slot_utilization,
+                   density=summ["density"], nnz_blocks=summ["nnz_blocks"],
+                   total_blocks=summ["total_blocks"])
     log(f"  (a) fp32: {len(done)} requests, {emitted} tokens in {dt:.3f}s = "
         f"{emitted / dt:.1f} tok/s, TTFT p50 {stats_a['ttft_ms_p50']:.2f} ms "
         f"max {ttft[-1]:.2f} ms, {st['hit_requests']} prefix-hit requests "
-        f"({st['pages_shared']} pages mapped), launches {launches}")
-    log(f"  main path (a) on {gpu_line}: {emitted / dt:.1f} tok/s, TTFT p50 "
+        f"({st['pages_shared']} pages mapped), {eng.decode_ticks} decode "
+        f"ticks + {len(done)} prefills, launches {launches}")
+    log(f"  {arch} (a) on {gpu_line}: {emitted / dt:.1f} tok/s, TTFT p50 "
         f"{stats_a['ttft_ms_p50']:.2f} ms")
-    if any(r.status is not RequestStatus.FINISHED or len(r.tokens) != gen
-           for r in done.values()):
-        raise AssertionError("run (a): a stream did not finish at full length")
     if st["hit_requests"] < 1:
-        raise AssertionError("run (a): no prefix-cache hit")
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"run (a): kernel {name} never launched")
+        raise AssertionError(f"{arch} run (a): no prefix-cache hit")
+    used = {"bsr_matmul", "paged_attention_decode", "paged_attention_prefill",
+            *PER_LAYER[arch]}
+    for name in used:
+        if launches[name] < 1:
+            raise AssertionError(f"{arch} run (a): kernel {name} never launched")
+    for name, per in PER_LAYER[arch].items():
+        want = per * base.n_layers * passes
+        if launches[name] != want:
+            raise AssertionError(
+                f"{arch} run (a): {name} launched {launches[name]} times, "
+                f"not {per} x {base.n_layers} layers x {passes} passes = {want}")
     bad = serve.verify_streams(params, cfg_a, done, gen, device=dev)
     if bad:
-        raise AssertionError(f"run (a): streams {bad} differ from solo decode")
-    log(f"  (a) fp32: all {len(done)} streams token-identical to solo decode")
+        raise AssertionError(f"{arch} run (a): streams {bad} differ from solo "
+                             "decode")
+    log(f"  (a) fp32: all {len(done)} streams token-identical to solo decode; "
+        + ", ".join(f"{name} {launches[name]} = {per} x {base.n_layers} x "
+                    f"{passes} passes" for name, per in PER_LAYER[arch].items()))
     busy = device_busy(torch, params, cfg_a, prompts, gen, dev, dt)
     stats_a["device"] = busy
     if isinstance(busy["busy_share"], float):
         log(f"  (a) fp32: card busy {busy['device_busy_ms']:.1f} of "
             f"{busy['wall_ms']:.1f} ms wall ({100 * busy['busy_share']:.1f}%), "
-            f"{eng.decode_ticks} decode ticks, "
             f"{dt / max(eng.decode_ticks, 1) * 1e3:.2f} ms wall per tick; "
             f"top kernels:")
         for row in busy["top"][:6]:
@@ -494,50 +695,66 @@ def main_path(torch, dev, gpu_line):
     else:
         log(f"  (a) fp32: card busy share not measured ({busy['error']})")
     first_a = {rid: int(r.tokens[0]) for rid, r in done.items()}
-    kernels = timings(torch, dev, cap, launches)
-    del params, cap, eng
+    del params, eng
     torch.cuda.empty_cache()
 
-    # (b) the config's own bf16 dtypes, same seed and traffic
-    t0 = time.perf_counter()
+    # (b) the config's own dtypes (and capacity factor), same seed and traffic
     params_b, _ = serve.build_params(base, seed=seed, device=dev, pruned=0.75,
                                      block=(128, 128), min_size=4096)
     serve_once(params_b, base, prompts, gen, dev)          # warm-up
     eng_b, done_b, dt_b = serve_once(params_b, base, prompts, gen, dev)
     emitted_b = sum(len(r.tokens) for r in done_b.values())
-    if any(r.status is not RequestStatus.FINISHED or len(r.tokens) != gen
-           for r in done_b.values()):
-        raise AssertionError("run (b): a stream failed (non-finite logits) or "
-                             "ended short")
     agree = sum(first_a[rid] == int(r.tokens[0]) for rid, r in done_b.items())
-    stats_b = dict(tokens=emitted_b, seconds=dt_b, tok_per_s=emitted_b / dt_b,
+    ttft_b = sorted(eng_b.ttft_seconds(r) * 1e3 for r in done_b)
+    stats_b = dict(capacity_factor=base.capacity_factor, tokens=emitted_b,
+                   seconds=dt_b, tok_per_s=emitted_b / dt_b,
+                   ttft_ms_p50=statistics.median(ttft_b),
                    first_token_agreement=f"{agree}/{len(done_b)}")
-    log(f"  (b) bf16: {len(done_b)} streams at full length, finite logits; "
-        f"{emitted_b} tokens in {dt_b:.3f}s = {emitted_b / dt_b:.1f} tok/s; "
-        f"first tokens equal to (a) in {agree}/{len(done_b)} requests "
+    log(f"  (b) {base.param_dtype}: {len(done_b)} streams at full length, "
+        f"finite logits; {emitted_b} tokens in {dt_b:.3f}s = "
+        f"{emitted_b / dt_b:.1f} tok/s, TTFT p50 {stats_b['ttft_ms_p50']:.2f} "
+        f"ms; first tokens equal to (a) in {agree}/{len(done_b)} requests "
         f"(reported, not gated)")
     del params_b, eng_b
-    return stats_a, stats_b, kernels
+    torch.cuda.empty_cache()
+    return stats_a, stats_b, cap, launches
 
 
 # ---------------------------------------------------------------------------
-# phase 4: times at the main path's shapes
+# phase 4: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
-def timings(torch, dev, cap, launches):
+def report_row(row) -> None:
+    REPORT["shapes"].append(row)
+    desc = {k: row[k] for k in row if k not in (
+        "name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "max_abs_err")}
+    lib = row["library_ms"]
+    log(f"  {row['name']} {desc}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library "
+        f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+        f"{row['bound_ms']:.5f} ms ({row['bound_by']}), max abs err "
+        f"{row['max_abs_err']:.3g}")
+
+
+def live_elems(flat_rows, flat_cols, z, k, n, bk, bn) -> int:
+    """Weight elements inside (K, N) of the first z live tiles."""
+    rr, cc = flat_rows[:z].long(), flat_cols[:z].long()
+    return int(((k - rr * bk).clamp(max=bk) * (n - cc * bn).clamp(max=bn)).sum())
+
+
+def epilogue_bytes(epi) -> int:
+    if epi is None:
+        return 0
+    return sum(t.numel() * t.element_size() for t in
+               (epi.bias, epi.multiplier, epi.residual) if t is not None)
+
+
+def time_bsr(torch, timer, path, cap):
     from repro_torch.core import bsr_to_dense
     from repro_torch.kernels import ops
     from repro_torch.kernels.block_sparse_matmul import bsr_matmul_plain
-    from repro_torch.kernels.paged_attention import (
-        paged_attention_decode_plain, paged_attention_prefill_plain)
-    import torch.nn.functional as F
-
-    timer = Timer(dev)
     rows = []
-
-    # BSR matmul: every captured (M, shape, epilogue), the decode-shaped
-    # gate projection (the largest decode call) is the headline entry
-    head = None
     for (phase, shape, kind), (x, bsr, epi) in sorted(cap.bsr.items()):
         m = x.numel() // shape[0]
         es = x.element_size()
@@ -554,28 +771,63 @@ def timings(torch, dev, cap, launches):
                    bsr_matmul_plain(x2, bsr, epilogue=epi2), TOL[dname(x.dtype)])
         bk, bn = bsr.blocking.bk, bsr.blocking.bn
         z = bsr.nnz_blocks
-        rr, cc = bsr.flat_rows[:z].long(), bsr.flat_cols[:z].long()
-        live = int(((shape[0] - rr * bk).clamp(max=bk)
-                    * (shape[1] - cc * bn).clamp(max=bn)).sum())
+        live = live_elems(bsr.flat_rows, bsr.flat_cols, z, *shape, bk, bn)
         nbytes = (m * shape[0] * es + z * bk * bn * es + bsr.indices.numel() * 8
-                  + m * shape[1] * es)
-        if epi is not None:
-            nbytes += sum(t.numel() * t.element_size() for t in
-                          (epi.bias, epi.multiplier, epi.residual) if t is not None)
+                  + m * shape[1] * es + epilogue_bytes(epi))
         bnd, by = bound_ms(nbytes, 2.0 * m * live, dname(x.dtype))
-        row = dict(name="bsr_matmul", phase=phase, m=m, k=shape[0], n=shape[1],
-                   epilogue=kind,
-                   nnz_blocks=z, ms=ms, plain_ms=plain, library_ms=lib,
-                   bound_ms=bnd, bound_by=by, max_abs_err=err)
+        row = dict(name="bsr_matmul", path=path, phase=phase, m=m, k=shape[0],
+                   n=shape[1], epilogue=kind, nnz_blocks=z, ms=ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+                   max_abs_err=err)
         rows.append(row)
-        REPORT["shapes"].append(row)
-        if phase == "decode" and shape == (1024, 2816) and "mult" in kind:
-            head = row
-    if head is None:
-        head = max((r for r in rows if r["name"] == "bsr_matmul"),
-                   key=lambda r: r["ms"])
+        report_row(row)
+    return rows
 
-    # paged decode at the largest captured context
+
+def time_planes(torch, timer, path, cap):
+    from repro_torch.core import bsr_to_dense
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.block_sparse_matmul import bsr_planes_matmul_plain
+    rows = []
+    for (phase, shape, kind), (x, planes, epi) in sorted(cap.planes.items()):
+        e, k, n = shape
+        x3 = x.reshape(e, -1, k)              # the plain version takes (E, M, K)
+        m = x3.shape[1]
+        es = x.element_size()
+        epi3 = None if epi is None else epi.map_operands(
+            lambda a: a.reshape(e, -1, a.shape[-1]))
+        ms = timer(lambda: ops.bsr_planes_matmul(x, planes, epilogue=epi))
+        plain = timer(lambda: bsr_planes_matmul_plain(x3, planes, epilogue=epi3),
+                      reps=10, device_only=False)
+        dense = torch.stack([bsr_to_dense(p) for p in planes.planes])
+        lib = timer(lambda: torch.bmm(x3, dense))
+        err = held("bsr_planes_matmul",
+                   ops.bsr_planes_matmul(x, planes, epilogue=epi).reshape(e, m, n),
+                   bsr_planes_matmul_plain(x3, planes, epilogue=epi3),
+                   TOL[dname(x.dtype)])
+        bk, bn = planes.blocking.bk, planes.blocking.bn
+        z = planes.nnz_blocks
+        live = sum(live_elems(planes.flat_rows[p], planes.flat_cols[p],
+                              planes.plane_nnz[p], k, n, bk, bn)
+                   for p in range(e))
+        nbytes = (e * m * k * es + z * bk * bn * es + planes.indices.numel() * 8
+                  + e * m * n * es + epilogue_bytes(epi))
+        bnd, by = bound_ms(nbytes, 2.0 * m * live, dname(x.dtype))
+        row = dict(name="bsr_planes_matmul", path=path, phase=phase, e=e, m=m,
+                   k=k, n=n, epilogue=kind, nnz_blocks=z,
+                   live_planes=sum(1 for v in planes.plane_nnz if v), ms=ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+                   max_abs_err=err)
+        rows.append(row)
+        report_row(row)
+    return rows
+
+
+def time_decode(torch, timer, path, cap):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_decode_plain
+    dev = cap.decode[1][0].device
     _, (q, kn, vn, kp, vp, tbl, clen) = cap.decode
     clen = clen.to(torch.int32)
     ms = timer(lambda: ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen))
@@ -605,16 +857,22 @@ def timings(torch, dev, cap, launches):
     es_q, es_p = q.element_size(), kp.element_size()
     nbytes = (b * h * dh * es_q + 2 * b * kvh * dh * es_q + 2 * ctx * kvh * dh * es_p
               + 4 * (b + int(((clen + ps - 1) // ps).sum())) + b * h * dh * 4)
-    flops = 4.0 * (ctx + b) * h * dh
-    bnd, by = bound_ms(nbytes, flops, "float32")
-    dec = dict(name="paged_attention_decode", b=b, h=h, kvh=kvh, dh=dh, ps=ps,
-               cache_len=[int(v) for v in clen], ms=ms, plain_ms=plain,
-               library_ms=lib, bound_ms=bnd, bound_by=by, max_abs_err=err)
-    REPORT["shapes"].append(dec)
+    bnd, by = bound_ms(nbytes, 4.0 * (ctx + b) * h * dh, "float32")
+    row = dict(name="paged_attention_decode", path=path, b=b, h=h, kvh=kvh,
+               dh=dh, ps=ps, cache_len=[int(v) for v in clen], ms=ms,
+               plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+               max_abs_err=err)
+    report_row(row)
+    return [row]
 
-    # paged prefill: the longest captured admission (a prefix-hit tail too)
-    pre_rows = []
+
+def time_prefill(torch, timer, path, cap):
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_prefill_plain
+    rows = []
     for hit, (qp, kp2, vp2, tbl2, lens, q_offset) in sorted(cap.prefill.items()):
+        dev = qp.device
         lens = lens.to(torch.int32)
         ms = timer(lambda: ops.paged_attention_prefill(qp, kp2, vp2, tbl2, lens,
                                                        q_offset=q_offset))
@@ -648,37 +906,94 @@ def timings(torch, dev, cap, launches):
                   + 2 * sum(lens_l) * kvh * dh * kp2.element_size()
                   + qp.numel() * 4 + 4 * (tbl2.numel() + b))
         bnd, by = bound_ms(nbytes, 4.0 * pairs * h * dh, "float32")
-        row = dict(name="paged_attention_prefill", b=b, s=s, h=h, kvh=kvh, dh=dh,
-                   ps=ps, q_offset=q_offset, lengths=lens_l, ms=ms,
-                   plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
-                   max_abs_err=err)
-        pre_rows.append(row)
-        REPORT["shapes"].append(row)
-    pre = max(pre_rows, key=lambda r: r["s"])
+        row = dict(name="paged_attention_prefill", path=path, b=b, s=s, h=h,
+                   kvh=kvh, dh=dh, ps=ps, q_offset=q_offset, lengths=lens_l,
+                   ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                   bound_by=by, max_abs_err=err)
+        rows.append(row)
+        report_row(row)
+    return rows
 
-    sources = {
-        "bsr_matmul": ("src/repro_torch/csrc/bsr_matmul.cu",
-                       "src/repro/kernels/block_sparse_matmul.py:77"),
-        "paged_attention_decode": ("src/repro_torch/csrc/paged_decode.cu",
-                                   "src/repro/kernels/paged_attention.py:146"),
-        "paged_attention_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
-                                    "src/repro/kernels/paged_attention.py:324"),
-    }
+
+def time_norms(torch, timer, dev):
+    """Off every path (as in the reference): timed at granite's
+    experts_up as (E * K, N) = (32768, 512) with 128x128 tiles (the
+    knapsack's per-expert-tile norms), fp32 as in run (a)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.structure_norms import structure_norms_plain
+    g = torch.Generator(device=dev).manual_seed(11)
+    k, n, bk, bn = 32 * 1024, 512, 128, 128
+    w = torch.randn((k, n), generator=g, device=dev)
+    ms = timer(lambda: ops.structure_norms(w, bk, bn))
+    plain = timer(lambda: structure_norms_plain(w, bk, bn), reps=10,
+                  device_only=False)
+    view = w.view(k // bk, bk, n // bn, bn)
+    lib = timer(lambda: torch.linalg.vector_norm(view, dim=(1, 3)))
+    err = held("structure_norms", ops.structure_norms(w, bk, bn),
+               structure_norms_plain(w, bk, bn), TOL["float32"])
+    gk, gn = k // bk, n // bn
+    bnd, by = bound_ms(k * n * 4 + gk * gn * 4, 2.0 * k * n, "float32")
+    row = dict(name="structure_norms", path="none (pruning-time kernel)", k=k,
+               n=n, bk=bk, bn=bn, dtype="float32", ms=ms, plain_ms=plain,
+               library_ms=lib, bound_ms=bnd, bound_by=by, max_abs_err=err)
+    report_row(row)
+    return row
+
+
+SOURCES = {
+    "bsr_matmul": ("src/repro_torch/csrc/bsr_matmul.cu",
+                   "src/repro/kernels/block_sparse_matmul.py:77"),
+    "paged_attention_decode": ("src/repro_torch/csrc/paged_decode.cu",
+                               "src/repro/kernels/paged_attention.py:146"),
+    "paged_attention_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
+                                "src/repro/kernels/paged_attention.py:324"),
+    "bsr_planes_matmul": ("src/repro_torch/csrc/bsr_planes_matmul.cu",
+                          "src/repro/kernels/block_sparse_matmul.py:178"),
+    "structure_norms": ("src/repro_torch/csrc/structure_norms.cu",
+                        "src/repro/kernels/structure_norms.py:20"),
+}
+
+
+def timings(torch, dev, caps, launches):
+    """Every kernel at the captured shapes of each path; returns the
+    ``kernels`` line (one headline shape per kernel, launches summed
+    over the paths' runs (a))."""
+    timer = Timer(dev)
+    rows = []
+    for path, cap in caps.items():
+        rows += time_bsr(torch, timer, path, cap)
+        rows += time_planes(torch, timer, path, cap)
+        rows += time_decode(torch, timer, path, cap)
+        rows += time_prefill(torch, timer, path, cap)
+    rows.append(time_norms(torch, timer, dev))
+
+    def pick(name, **want):
+        cands = [r for r in rows if r["name"] == name]
+        for r in cands:
+            if all(r.get(k) == v for k, v in want.items()):
+                return r
+        return max(cands, key=lambda r: r["ms"])
+
+    heads = [
+        # the largest decode call of each path's BSR kernels
+        pick("bsr_matmul", path="qwen1.5-0.5b", phase="decode", k=1024, n=2816,
+             epilogue="silu+mult"),
+        pick("paged_attention_decode", path="granite-moe-1b-a400m"),
+        max((r for r in rows if r["name"] == "paged_attention_prefill"
+             and r["path"] == "granite-moe-1b-a400m"), key=lambda r: r["s"]),
+        pick("bsr_planes_matmul", phase="decode", k=1024, n=512, epilogue="none"),
+        pick("structure_norms"),
+    ]
     out = []
-    for r in (head, dec, pre):
-        src, rep = sources[r["name"]]
+    for r in heads:
+        src, rep = SOURCES[r["name"]]
+        by_path = {p: n.get(r["name"], 0) for p, n in launches.items()}
         out.append(dict(name=r["name"], route="cuda", source=src, replaces=rep,
-                        launches=launches[r["name"]], max_abs_err=r["max_abs_err"],
-                        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                        launches=sum(by_path.values()),
+                        launches_by_path=by_path, path=r.get("path"),
+                        max_abs_err=r["max_abs_err"], ms=r["ms"],
+                        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                         bound_by=r["bound_by"], library_ms=r["library_ms"]))
-    for r in REPORT["shapes"]:
-        desc = {k: r[k] for k in r if k not in ("name", "ms", "plain_ms",
-                                                "library_ms", "bound_ms",
-                                                "bound_by", "max_abs_err")}
-        log(f"  {r['name']} {desc}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err "
-            f"{r['max_abs_err']:.3g}")
     return out
 
 
@@ -719,15 +1034,27 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions")
     check_bsr(torch, dev)
+    check_planes(torch, dev)
     check_attention(torch, dev)
+    check_norms(torch, dev)
+    check_router(torch, dev)
+    log(f"  phase 2 done at {time.perf_counter() - t_start:.1f}s")
 
-    log("phase 3: main path, qwen1.5-0.5b full width, knapsack 0.75, BSR 128x128")
-    stats_a, stats_b, kernels = main_path(torch, dev, gpu_line)
+    paths = {}
+    for arch, cf_a in (("qwen1.5-0.5b", None), ("granite-moe-1b-a400m", 4.0)):
+        log(f"phase 3: main path, {arch} full width, knapsack 0.75, BSR 128x128")
+        paths[arch] = main_path(torch, dev, gpu_line, arch, cf_a=cf_a)
+        log(f"  {arch} done at {time.perf_counter() - t_start:.1f}s")
+
+    log("phase 4: kernel times at the main paths' shapes (CUDA events)")
+    kernels = timings(torch, dev, {a: p[2] for a, p in paths.items()},
+                      {a: p[3] for a, p in paths.items()})
 
     REPORT.update(gpu=gpu_line, torch=torch.__version__, cuda=torch.version.cuda,
-                  build_seconds=secs, main_path_fp32=stats_a,
-                  main_path_bf16=stats_b, kernels=kernels,
-                  seconds=time.perf_counter() - t_start)
+                  build_seconds=secs,
+                  main_paths={a: {"fp32": p[0], "config_dtype": p[1]}
+                              for a, p in paths.items()},
+                  kernels=kernels, seconds=time.perf_counter() - t_start)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))
     log(f"done in {time.perf_counter() - t_start:.1f}s; details in "

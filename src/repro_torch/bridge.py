@@ -3,9 +3,12 @@
 ``params_from_reference(tree, device)`` walks nested dicts and lists and
 turns every array leaf into a torch tensor with ``np.asarray`` — which
 reads a JAX array without this module importing JAX.  A leaf that looks
-like the reference's ``BSRWeight`` (``indices``, ``slots``, ``blocks``,
-``flat_rows``, ``flat_cols``, ``shape``, ``blocking``, ``nnz_blocks``)
-becomes the port's ``BSRWeight`` with the identical layout.
+like the reference's ``BSRPlanes`` (it carries ``plane_nnz``) becomes the
+port's ``BSRPlanes``; one like its ``BSRWeight`` (``indices``, ``slots``,
+``blocks``, ``flat_rows``, ``flat_cols``, ``shape``, ``blocking``,
+``nnz_blocks``) the port's ``BSRWeight``, each with the identical
+layout.  The planes test comes first: a ``BSRPlanes`` has every
+``BSRWeight`` field too (``nnz_blocks`` is a property there).
 
 ``np.asarray`` of a bf16 JAX array has the ``ml_dtypes`` bfloat16 dtype,
 which ``torch.from_numpy`` rejects: such leaves go through their raw
@@ -19,7 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.packing import BSRWeight
+from repro_torch.core.packing import BSRPlanes, BSRWeight
 from repro_torch.core.structures import BlockingSpec
 
 __all__ = ["params_from_reference", "tensor_from_reference"]
@@ -40,19 +43,18 @@ def tensor_from_reference(x, device=None) -> torch.Tensor:
 
 def params_from_reference(tree: Any, device=None) -> Any:
     """Nested dicts/lists of reference arrays -> the same tree of torch
-    tensors (and ``BSRWeight`` leaves) on ``device``."""
+    tensors (and ``BSRPlanes`` / ``BSRWeight`` leaves) on ``device``."""
     if all(hasattr(tree, f) for f in _BSR_FIELDS):
         b = tree.blocking
-        return BSRWeight(
-            indices=tensor_from_reference(tree.indices, device),
-            slots=tensor_from_reference(tree.slots, device),
-            blocks=tensor_from_reference(tree.blocks, device),
-            flat_rows=tensor_from_reference(tree.flat_rows, device),
-            flat_cols=tensor_from_reference(tree.flat_cols, device),
+        arrays = {f: tensor_from_reference(getattr(tree, f), device)
+                  for f in _BSR_FIELDS[:5]}
+        common = dict(
             shape=tuple(int(s) for s in tree.shape),
-            blocking=BlockingSpec(bk=b.bk, bn=b.bn, consecutive=b.consecutive),
-            nnz_blocks=int(tree.nnz_blocks),
-        )
+            blocking=BlockingSpec(bk=b.bk, bn=b.bn, consecutive=b.consecutive))
+        if hasattr(tree, "plane_nnz"):
+            return BSRPlanes(**arrays, **common, plane_nnz=tuple(
+                int(z) for z in tree.plane_nnz))
+        return BSRWeight(**arrays, **common, nnz_blocks=int(tree.nnz_blocks))
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -8,10 +8,12 @@ from __future__ import annotations
 from typing import Dict, List
 
 from .base import ModelConfig, make_smoke, torch_dtype
+from .granite_moe_1b_a400m import CONFIG as granite_moe_1b_a400m
 from .qwen1_5_0_5b import CONFIG as qwen1_5_0_5b
 
 ARCHS: Dict[str, ModelConfig] = {
     "qwen1.5-0.5b": qwen1_5_0_5b,
+    "granite-moe-1b-a400m": granite_moe_1b_a400m,
 }
 
 

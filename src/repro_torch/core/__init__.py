@@ -8,7 +8,7 @@
 """
 from .knapsack import KnapsackResult, solve_brute, solve_dp, solve_greedy, solve_mdkp
 from .masks import build_structures, masks_from_knapsack
-from .packing import BSRWeight, bsr_to_dense, pack_bsr
+from .packing import BSRPlanes, BSRWeight, bsr_to_dense, pack_bsr
 from .resource_model import TPU_V5E, HardwareSpec, TPUResourceModel, consecutive_groups
 from .structures import (
     BlockingSpec,
@@ -23,7 +23,7 @@ from .structures import (
 __all__ = [
     "KnapsackResult", "solve_brute", "solve_dp", "solve_greedy", "solve_mdkp",
     "build_structures", "masks_from_knapsack",
-    "BSRWeight", "bsr_to_dense", "pack_bsr",
+    "BSRPlanes", "BSRWeight", "bsr_to_dense", "pack_bsr",
     "TPU_V5E", "HardwareSpec", "TPUResourceModel", "consecutive_groups",
     "BlockingSpec", "LayerStructures", "StructureInfo", "block_partition",
     "iter_prunable", "mask_from_selection", "structure_norms_dense",

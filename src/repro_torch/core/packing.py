@@ -13,8 +13,14 @@ in ``src/repro/core/packing.py``, with the identical layout:
 
 Packing runs with torch ops on the weight's own device: the reference
 packs with numpy, which has no bfloat16, while the full config's params
-are bf16 and live on the card.  ``BSRPlanes`` (MoE experts) is not
-ported yet.
+are bf16 and live on the card.
+
+``BSRPlanes`` (reference :96) stacks the per-plane ``BSRWeight``s of a
+3-D (MoE expert) weight into one rectangular layout, so the whole
+expert stack is one kernel launch: the per-column slot dim pads to the
+stack-wide ``max_nnz`` (indices -1, slots 0), the flat store pads with
+zero blocks to the largest plane's count, and ``flat_cols`` pads with
+``grid_n - 1`` so every plane's column ids stay sorted.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import torch
 
 from .structures import BlockingSpec
 
-__all__ = ["BSRWeight", "pack_bsr", "bsr_to_dense"]
+__all__ = ["BSRWeight", "BSRPlanes", "pack_bsr", "bsr_to_dense"]
 
 
 @dataclasses.dataclass
@@ -63,6 +69,83 @@ class BSRWeight:
 
     def density(self) -> float:
         return self.nnz_blocks / max(self.grid_k * self.grid_n, 1)
+
+
+@dataclasses.dataclass
+class BSRPlanes:
+    """Flattened per-plane BSR stack for a >2-D weight (MoE (E, D, F))."""
+
+    indices: torch.Tensor     # (E, grid_n, max_nnz) int32, -1 padded
+    slots: torch.Tensor       # (E, grid_n, max_nnz) int32, 0 padded
+    blocks: torch.Tensor      # (E, nnz_pad, bk, bn) flat stores
+    flat_rows: torch.Tensor   # (E, nnz_pad) int32, 0 padded
+    flat_cols: torch.Tensor   # (E, nnz_pad) int32, sorted, grid_n-1 padded
+    shape: Tuple[int, ...]    # full dense shape, leading dims included
+    blocking: BlockingSpec    # effective (clamped) tile shape
+    plane_nnz: Tuple[int, ...]  # true live count per plane
+
+    @classmethod
+    def from_planes(cls, planes: Tuple[BSRWeight, ...],
+                    shape: Tuple[int, ...]) -> "BSRPlanes":
+        """Concatenate per-plane BSRWeights (same (K, N) and blocking)
+        into the fused layout, padded to the stack-wide maxima."""
+        max_nnz = max(p.max_nnz for p in planes)
+        nnz_pad = max(p.blocks.shape[0] for p in planes)
+        gn = planes[0].grid_n
+        pad = torch.nn.functional.pad
+        idx, slt, blk, fr, fc = [], [], [], [], []
+        for p in planes:
+            spad = max_nnz - p.max_nnz
+            zpad = nnz_pad - p.blocks.shape[0]
+            idx.append(pad(p.indices, (0, spad), value=-1))
+            slt.append(pad(p.slots, (0, spad)))
+            blk.append(pad(p.blocks, (0, 0, 0, 0, 0, zpad)))
+            fr.append(pad(p.flat_rows, (0, zpad)))
+            # the last column id, not 0: keeps each plane's ids sorted
+            # (the zero padding blocks add nothing wherever they point)
+            fc.append(pad(p.flat_cols, (0, zpad), value=gn - 1))
+        return cls(
+            indices=torch.stack(idx), slots=torch.stack(slt),
+            blocks=torch.stack(blk), flat_rows=torch.stack(fr),
+            flat_cols=torch.stack(fc), shape=tuple(int(s) for s in shape),
+            blocking=planes[0].blocking,
+            plane_nnz=tuple(int(p.nnz_blocks) for p in planes),
+        )
+
+    @property
+    def num_planes(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def grid_k(self) -> int:
+        return -(-self.shape[-2] // self.blocking.bk)
+
+    @property
+    def grid_n(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def max_nnz(self) -> int:
+        return self.indices.shape[2]
+
+    @property
+    def nnz_blocks(self) -> int:
+        return sum(self.plane_nnz)
+
+    @property
+    def planes(self) -> Tuple[BSRWeight, ...]:
+        """Per-plane ``BSRWeight`` views into the fused arrays."""
+        kn = (int(self.shape[-2]), int(self.shape[-1]))
+        return tuple(
+            BSRWeight(indices=self.indices[e], slots=self.slots[e],
+                      blocks=self.blocks[e], flat_rows=self.flat_rows[e],
+                      flat_cols=self.flat_cols[e], shape=kn,
+                      blocking=self.blocking, nnz_blocks=self.plane_nnz[e])
+            for e in range(self.num_planes))
+
+    def density(self) -> float:
+        return self.nnz_blocks / max(
+            self.num_planes * self.grid_k * self.grid_n, 1)
 
 
 @torch.no_grad()

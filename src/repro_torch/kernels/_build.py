@@ -36,8 +36,10 @@ SOURCES: Dict[str, str] = {
     "bsr_matmul": "bsr_matmul.cu",
     "paged_attention_decode": "paged_decode.cu",
     "paged_attention_prefill": "paged_prefill.cu",
+    "bsr_planes_matmul": "bsr_planes_matmul.cu",
+    "structure_norms": "structure_norms.cu",
 }
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "bsr_body.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

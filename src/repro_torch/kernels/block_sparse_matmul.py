@@ -1,15 +1,22 @@
-"""Block-sparse (BSR) matmul: the Hopper kernel's wrapper and its plain
-PyTorch version.
+"""Block-sparse (BSR) matmuls: the Hopper kernels' wrappers and their
+plain PyTorch versions.
 
-Replaces ``bsr_matmul_kernel`` / ``bsr_matmul_pallas``
-(``src/repro/kernels/block_sparse_matmul.py:77,109``).  Both functions
-compute ``y = act(x @ W_bsr + bias) * mult + residual`` for ``x (M, K)``
-with fp32 accumulation and return ``x.dtype``:
+Replaces ``bsr_matmul_kernel`` / ``bsr_matmul_pallas`` and
+``bsr_planes_matmul_kernel`` / ``bsr_planes_matmul_pallas``
+(``src/repro/kernels/block_sparse_matmul.py:77,109,178,216``).  Each
+computes ``y = act(x @ W_bsr + bias) * mult + residual`` with fp32
+accumulation and returns ``x.dtype``; the planes variant does so for
+every plane ``e`` of ``x (E, M, K)`` against its own BSR weight in one
+launch, with the bias shared across planes:
 
-* ``bsr_matmul_cuda`` launches ``csrc/bsr_matmul.cu`` on CUDA tensors;
-* ``bsr_matmul_plain`` follows ``src/repro/kernels/ref.py:43``: one
-  batched GEMM over the live tiles of the flat store, then ``index_add_``
-  over the output block-columns.  It never densifies the weight.
+* ``bsr_matmul_cuda`` / ``bsr_planes_matmul_cuda`` launch
+  ``csrc/bsr_matmul.cu`` / ``csrc/bsr_planes_matmul.cu`` (one kernel
+  body, ``csrc/bsr_body.cuh``) on CUDA tensors;
+* ``bsr_matmul_plain`` / ``bsr_planes_matmul_plain`` follow
+  ``src/repro/kernels/ref.py:43,66``: one batched GEMM over the live
+  tiles of the flat store(s), then ``index_add_`` over the output
+  block-columns (offset by ``e * grid_n`` per plane).  They never
+  densify the weight.
 """
 from __future__ import annotations
 
@@ -18,13 +25,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.packing import BSRWeight
+from repro_torch.core.packing import BSRPlanes, BSRWeight
 from . import _build
 from .epilogue import Epilogue, apply_epilogue
 
-__all__ = ["bsr_matmul_plain", "bsr_matmul_cuda", "ACT_CODES"]
+__all__ = ["bsr_matmul_plain", "bsr_matmul_cuda", "bsr_planes_matmul_plain",
+           "bsr_planes_matmul_cuda", "ACT_CODES"]
 
-# activation codes of csrc/bsr_matmul.cu
+# activation codes of csrc/bsr_body.cuh
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3, "sigmoid": 4}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,22 +56,85 @@ def bsr_matmul_plain(x: torch.Tensor, bsr: BSRWeight, *,
     return apply_epilogue(y, epilogue).to(x.dtype)
 
 
-_FN = None
+def bsr_planes_matmul_plain(x: torch.Tensor, planes: BSRPlanes, *,
+                            epilogue: Optional[Epilogue] = None) -> torch.Tensor:
+    """y[e] = epilogue(x[e] @ W_bsr[e]) for x (E, M, K) -> (E, M, n):
+    one batched GEMM over every plane's flat store, one ``index_add_``
+    over segment ids offset by ``e * grid_n``.  A dead plane contributes
+    only its zero padding blocks."""
+    e, m, k = x.shape
+    bk, bn = planes.blocking.bk, planes.blocking.bn
+    gn, z = planes.grid_n, planes.blocks.shape[1]
+    pad = (-k) % bk
+    xp = torch.nn.functional.pad(x, (0, pad)) if pad else x
+    xt = xp.reshape(e, m, -1, bk).transpose(1, 2)               # (E, gk, M, bk)
+    plane = torch.arange(e, device=x.device)
+    xg = xt[plane[:, None], planes.flat_rows.long()]            # (E, Z, M, bk)
+    contrib = torch.matmul(xg.to(torch.float32),
+                           planes.blocks.to(torch.float32))     # (E, Z, M, bn)
+    segs = (planes.flat_cols.long() + plane[:, None] * gn).reshape(-1)
+    y = torch.zeros((e * gn, m, bn), dtype=torch.float32, device=x.device)
+    y.index_add_(0, segs, contrib.reshape(e * z, m, bn))
+    y = y.reshape(e, gn, m, bn).transpose(1, 2).reshape(e, m, gn * bn)
+    return apply_epilogue(y[:, :, : planes.shape[-1]], epilogue).to(x.dtype)
 
 
-def _launcher():
-    global _FN
-    if _FN is None:
-        fn = _build.library("bsr_matmul").bsr_matmul_launch
+_FNS = {}
+
+
+def _launcher(name: str, n_ints: int):
+    """The C entry point ``<name>_launch(dtype, 8 pointers, n_ints ints,
+    stream)`` of kernel ``name``."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(_build.library(name), f"{name}_launch")
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-        _FN = fn
-    return _FN
+                       + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+        _FNS[name] = fn
+    return fn
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _check_operands(name: str, x: torch.Tensor, w) -> None:
+    """x on the card in the weight's dtype; the weight's arrays
+    contiguous int32 maps and flat store on x's device."""
+    if not x.is_cuda:
+        raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
+    if x.dtype not in _DTYPE_CODES or w.blocks.dtype != x.dtype:
+        raise TypeError(f"{name}: x {x.dtype} and blocks {w.blocks.dtype} "
+                        "must be one of float32/bfloat16")
+    for field, t in (("blocks", w.blocks), ("indices", w.indices),
+                     ("slots", w.slots)):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {field} must be contiguous on {x.device}")
+    if w.indices.dtype != torch.int32 or w.slots.dtype != torch.int32:
+        raise TypeError(f"{name}: indices/slots must be int32")
+
+
+def _epilogue_operands(name: str, epilogue: Optional[Epilogue], x: torch.Tensor,
+                       out_shape):
+    """(bias fp32 (N,), multiplier, residual, activation code); the
+    multiplier and residual must be contiguous, output-shaped, in x's
+    dtype and on its device."""
+    epi = epilogue or Epilogue()
+    bias = None
+    if epi.bias is not None:
+        bias = epi.bias.to(device=x.device, dtype=torch.float32).contiguous()
+        if bias.shape != out_shape[-1:]:
+            raise ValueError(f"bias {tuple(bias.shape)} != ({out_shape[-1]},)")
+    for field, t in (("multiplier", epi.multiplier), ("residual", epi.residual)):
+        if t is None:
+            continue
+        if tuple(t.shape) != tuple(out_shape) or t.dtype != x.dtype \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: {field} must be contiguous {tuple(out_shape)} "
+                f"{x.dtype} on {x.device}, got {tuple(t.shape)} {t.dtype}")
+    return bias, epi.multiplier, epi.residual, ACT_CODES[epi.activation]
 
 
 def bsr_matmul_cuda(x: torch.Tensor, bsr: BSRWeight, *,
@@ -71,50 +142,64 @@ def bsr_matmul_cuda(x: torch.Tensor, bsr: BSRWeight, *,
     """Launch the Hopper BSR kernel: x (M, K) on the card, same dtype as
     the weight's blocks (fp32 or bf16); multiplier/residual (M, N) in that
     dtype too.  Returns (M, N) in x.dtype."""
-    if x.ndim != 2 or not x.is_cuda:
-        raise ValueError(f"bsr_matmul_cuda needs a 2-D CUDA tensor, got "
-                         f"{tuple(x.shape)} on {x.device}")
+    if x.ndim != 2:
+        raise ValueError(f"bsr_matmul_cuda needs a 2-D tensor, got "
+                         f"{tuple(x.shape)}")
     m, k = x.shape
     kk, n = bsr.shape
     if k != kk:
         raise ValueError(f"x has K={k}, weight has K={kk}")
-    if x.dtype not in _DTYPE_CODES or bsr.blocks.dtype != x.dtype:
-        raise TypeError(f"bsr_matmul_cuda: x {x.dtype} and blocks "
-                        f"{bsr.blocks.dtype} must be one of float32/bfloat16")
-    for name, t in (("blocks", bsr.blocks), ("indices", bsr.indices),
-                    ("slots", bsr.slots)):
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"bsr_matmul_cuda: {name} must be contiguous "
-                             f"on {x.device}")
-    if bsr.indices.dtype != torch.int32 or bsr.slots.dtype != torch.int32:
-        raise TypeError("bsr_matmul_cuda: indices/slots must be int32")
-    epi = epilogue or Epilogue()
-    bias = mult = res = None
-    if epi.bias is not None:
-        bias = epi.bias.to(device=x.device, dtype=torch.float32).contiguous()
-        if bias.shape != (n,):
-            raise ValueError(f"bias {tuple(bias.shape)} != ({n},)")
-    for name, t in (("multiplier", epi.multiplier), ("residual", epi.residual)):
-        if t is None:
-            continue
-        if t.shape != (m, n) or t.dtype != x.dtype or t.device != x.device \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"bsr_matmul_cuda: {name} must be contiguous ({m}, {n}) "
-                f"{x.dtype} on {x.device}, got {tuple(t.shape)} {t.dtype}")
-    mult, res = epi.multiplier, epi.residual
+    _check_operands("bsr_matmul_cuda", x, bsr)
+    bias, mult, res, act = _epilogue_operands("bsr_matmul_cuda", epilogue, x,
+                                              (m, n))
     x = x.contiguous()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _launcher()(
+        err = _launcher("bsr_matmul", 8)(
             _DTYPE_CODES[x.dtype], x.data_ptr(), bsr.blocks.data_ptr(),
             bsr.indices.data_ptr(), bsr.slots.data_ptr(), _ptr(bias),
             _ptr(mult), _ptr(res), out.data_ptr(), m, k, n,
-            bsr.blocking.bk, bsr.blocking.bn, bsr.grid_n, bsr.max_nnz,
-            ACT_CODES[epi.activation], stream)
+            bsr.blocking.bk, bsr.blocking.bn, bsr.grid_n, bsr.max_nnz, act,
+            stream)
     _build.check("bsr_matmul", err)
     _build.launch_counts["bsr_matmul"] += 1
+    return out
+
+
+def bsr_planes_matmul_cuda(x: torch.Tensor, planes: BSRPlanes, *,
+                           epilogue: Optional[Epilogue] = None) -> torch.Tensor:
+    """Launch the Hopper planes kernel once for the whole stack: x
+    (E, M, K) on the card, same dtype as the blocks (fp32 or bf16);
+    multiplier/residual (E, M, N) in that dtype, bias (N,) shared by the
+    planes.  Returns (E, M, N) in x.dtype."""
+    if x.ndim != 3:
+        raise ValueError(f"bsr_planes_matmul_cuda needs a 3-D tensor, got "
+                         f"{tuple(x.shape)}")
+    e, m, k = x.shape
+    kk, n = planes.shape[-2], planes.shape[-1]
+    if k != kk or e != planes.num_planes:
+        raise ValueError(f"x is {tuple(x.shape)}, weight has "
+                         f"{planes.num_planes} planes of K={kk}")
+    if e > 65535:
+        raise ValueError(f"bsr_planes_matmul_cuda: {e} planes > 65535")
+    _check_operands("bsr_planes_matmul_cuda", x, planes)
+    bias, mult, res, act = _epilogue_operands("bsr_planes_matmul_cuda",
+                                              epilogue, x, (e, m, n))
+    x = x.contiguous()
+    out = torch.empty((e, m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or e == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _launcher("bsr_planes_matmul", 10)(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), planes.blocks.data_ptr(),
+            planes.indices.data_ptr(), planes.slots.data_ptr(), _ptr(bias),
+            _ptr(mult), _ptr(res), out.data_ptr(), e, m, k, n,
+            planes.blocking.bk, planes.blocking.bn, planes.grid_n,
+            planes.max_nnz, planes.blocks.shape[1], act, stream)
+    _build.check("bsr_planes_matmul", err)
+    _build.launch_counts["bsr_planes_matmul"] += 1
     return out

@@ -13,8 +13,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.packing import BSRWeight
-from .block_sparse_matmul import bsr_matmul_cuda, bsr_matmul_plain
+from repro_torch.core.packing import BSRPlanes, BSRWeight
+from .block_sparse_matmul import (
+    bsr_matmul_cuda,
+    bsr_matmul_plain,
+    bsr_planes_matmul_cuda,
+    bsr_planes_matmul_plain,
+)
 from .epilogue import Epilogue
 from .paged_attention import (
     paged_attention_decode_cuda,
@@ -22,8 +27,10 @@ from .paged_attention import (
     paged_attention_prefill_cuda,
     paged_attention_prefill_plain,
 )
+from .structure_norms import structure_norms_cuda, structure_norms_plain
 
-__all__ = ["bsr_matmul", "paged_attention_decode", "paged_attention_prefill"]
+__all__ = ["bsr_matmul", "bsr_planes_matmul", "paged_attention_decode",
+           "paged_attention_prefill", "structure_norms"]
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -52,6 +59,25 @@ def bsr_matmul(x: torch.Tensor, bsr: BSRWeight, *,
     return y.reshape(*lead, bsr.shape[1])
 
 
+def bsr_planes_matmul(x: torch.Tensor, planes: BSRPlanes, *,
+                      epilogue: Optional[Epilogue] = None) -> torch.Tensor:
+    """y[e] = epilogue(x[e] @ W_bsr[e]) for x (E, ..., K), every plane in
+    one call; multiplier/residual are shaped (E, ..., N) like the output,
+    the bias (N,) is shared by the planes."""
+    e = x.shape[0]
+    lead = x.shape[1:-1]
+    x3 = x.reshape(e, -1, x.shape[-1])
+    epi = None if epilogue is None else epilogue.map_operands(
+        lambda a: a.reshape(e, -1, a.shape[-1]))
+    if _on_card(x3):
+        if epi is not None:
+            epi = epi.map_operands(lambda a: a.contiguous())
+        y = bsr_planes_matmul_cuda(x3.contiguous(), planes, epilogue=epi)
+    else:
+        y = bsr_planes_matmul_plain(x3, planes, epilogue=epi)
+    return y.reshape(e, *lead, planes.shape[-1])
+
+
 def paged_attention_decode(q, k_new, v_new, k_pool, v_pool, page_table,
                            cache_len) -> torch.Tensor:
     """Paged decode attention over [0, cache_len) plus the new token.
@@ -78,3 +104,10 @@ def paged_attention_prefill(q, k_pool, v_pool, page_table, lengths, *,
             q_offset=q_offset)
     return paged_attention_prefill_plain(
         q, k_pool, v_pool, page_table, lengths, q_offset=q_offset)
+
+
+def structure_norms(w: torch.Tensor, bk: int = 128, bn: int = 128) -> torch.Tensor:
+    """Tile L2 norms (grid_k, grid_n) fp32 of a (K, N) weight."""
+    if _on_card(w):
+        return structure_norms_cuda(w, bk, bn)
+    return structure_norms_plain(w, bk, bn)

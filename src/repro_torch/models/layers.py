@@ -9,7 +9,9 @@ Matmuls accumulate in fp32 like the reference's
 its output to bf16, so dense products widen their operands to fp32 first
 (products of bf16 values are exact in fp32).  ``matmul`` is the one
 sparse-execution dispatch point: a packed ``BSRWeight`` goes to
-``kernels.ops.bsr_matmul`` (the Hopper kernel on the card).
+``kernels.ops.bsr_matmul`` (the Hopper kernel on the card);
+``expert_matmul`` is its counterpart for (E, d, f) expert stacks, where a
+``BSRPlanes`` goes to ``kernels.ops.bsr_planes_matmul`` in one call.
 """
 from __future__ import annotations
 
@@ -18,12 +20,12 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core.packing import BSRWeight
+from repro_torch.core.packing import BSRPlanes, BSRWeight
 from repro_torch.kernels import ops
 from repro_torch.kernels.epilogue import apply_epilogue, make_epilogue
 
 __all__ = [
-    "matmul", "dense", "dense_init", "rmsnorm", "rmsnorm_init",
+    "matmul", "expert_matmul", "dense", "dense_init", "rmsnorm", "rmsnorm_init",
     "embed_init", "embed_lookup", "unembed_logits",
     "rope_frequencies", "apply_rope", "truncated_normal",
 ]
@@ -59,6 +61,26 @@ def matmul(x: torch.Tensor, w, *, accum=torch.float32, epilogue=None) -> torch.T
     if isinstance(w, BSRWeight):
         return ops.bsr_matmul(x, w, epilogue=epilogue).to(accum)
     y = torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(accum)
+    return apply_epilogue(y, epilogue)
+
+
+def expert_matmul(h: torch.Tensor, w, *, accum=torch.float32,
+                  epilogue=None) -> torch.Tensor:
+    """Batched expert matmul (g, E, C, d) @ (E, d, f) -> (g, E, C, f) in
+    ``accum`` (reference ``layers.py:90``).  A ``BSRPlanes`` leaf makes ONE
+    ``ops.bsr_planes_matmul`` call over the whole stack: E moves to the
+    front and the operands are made contiguous (the kernel's output is
+    ``h.dtype``, and its multiplier/residual must be too — a multiplier
+    that is itself such an output widened to fp32 narrows back exactly).
+    A dense leaf is an fp32 einsum followed by the same epilogue."""
+    if isinstance(w, BSRPlanes):
+        he = h.transpose(0, 1).contiguous()                   # (E, g, C, d)
+        epi = None if epilogue is None else epilogue.map_operands(
+            lambda a: a.transpose(0, 1).to(h.dtype).contiguous())
+        y = ops.bsr_planes_matmul(he, w, epilogue=epi)
+        return y.transpose(0, 1).to(accum)                    # (g, E, C, f)
+    y = torch.einsum("gecd,edf->gecf", h.to(torch.float32),
+                     w.to(torch.float32)).to(accum)
     return apply_epilogue(y, epilogue)
 
 

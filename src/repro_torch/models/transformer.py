@@ -1,9 +1,10 @@
-"""Decoder stack for attention + dense-MLP language models — torch port of
-``src/repro/models/transformer.py``.
+"""Decoder stack for attention language models with dense-MLP or MoE
+layers — torch port of ``src/repro/models/transformer.py``.
 
 ``layer_specs``, ``init_params`` and ``init_caches`` cover stacks of
-``mixer=attn, mlp=dense`` layers; other mixers (mamba, xLSTM), MoE and
-encoder-decoder stacks raise until they are ported.  ``lm_prefill``
+``mixer=attn`` layers with ``mlp=dense`` or ``mlp=moe``; other mixers
+(mamba, xLSTM), encoder-decoder stacks and the multi-device MoE
+all-to-all raise until they are ported.  ``lm_prefill``
 (:514) and ``lm_decode`` (:434) run unchanged on packed (BSR) params;
 ``lm_generate`` (:727) is the greedy loop as plain Python.
 
@@ -22,6 +23,7 @@ from repro_torch.device import resolve_device
 from .attention import attention_decode, attention_init, attention_prefill, init_kv_cache
 from .ffn import mlp_apply, mlp_init
 from .layers import embed_init, embed_lookup, rmsnorm, rmsnorm_init, unembed_logits
+from .moe import moe_apply, moe_decode, moe_init
 
 __all__ = [
     "LayerSpec", "layer_specs", "init_params", "init_caches",
@@ -64,9 +66,13 @@ def _check_ported(cfg: ModelConfig) -> List[LayerSpec]:
         if spec.mixer != "attn":
             raise NotImplementedError(
                 f"{cfg.name}: mixer {spec.mixer!r} is not ported to torch yet")
-        if spec.mlp != "dense":
+        if spec.mlp not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{cfg.name}: mlp {spec.mlp!r} (MoE) is not ported to torch yet")
+                f"{cfg.name}: mlp {spec.mlp!r} is not ported to torch yet")
+    if cfg.moe_impl == "alltoall" and any(sp.mlp == "moe" for sp in specs):
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl='alltoall' (expert-parallel all-to-all "
+            "across devices) is not ported to torch yet")
     return specs
 
 
@@ -88,16 +94,22 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
         "layers": [],
         "final_norm": rmsnorm_init(cfg.d_model, dt, device),
     }
-    for _ in specs:
-        params["layers"].append({
+    for spec in specs:
+        layer = {
             "pre_norm": rmsnorm_init(cfg.d_model, dt, device),
             "attn": attention_init(cfg.d_model, cfg.n_heads, cfg.kv_heads, hd,
                                    generator=gen, device=device,
                                    qkv_bias=cfg.qkv_bias, dtype=dt),
             "post_norm": rmsnorm_init(cfg.d_model, dt, device),
-            "mlp": mlp_init(cfg.d_model, cfg.d_ff, generator=gen,
-                            device=device, gated=cfg.gated_mlp, dtype=dt),
-        })
+        }
+        if spec.mlp == "moe":
+            layer["moe"] = moe_init(cfg.d_model, cfg.d_ff, cfg.moe_experts,
+                                    generator=gen, device=device,
+                                    gated=cfg.gated_mlp, dtype=dt)
+        else:
+            layer["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, generator=gen,
+                                    device=device, gated=cfg.gated_mlp, dtype=dt)
+        params["layers"].append(layer)
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(cfg.vocab, cfg.d_model, generator=gen,
                                        device=device, dtype=dt)
@@ -135,8 +147,14 @@ def lm_decode(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
             rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
             page_table=page_tables)
         x = x + h
-        x = mlp_apply(lp["mlp"], rmsnorm(lp["post_norm"], x),
-                      activation=cfg.activation, residual=x)
+        if "moe" in lp:
+            y, _ = moe_decode(lp["moe"], rmsnorm(lp["post_norm"], x),
+                              num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                              activation=cfg.activation)
+            x = x + y
+        else:
+            x = mlp_apply(lp["mlp"], rmsnorm(lp["post_norm"], x),
+                          activation=cfg.activation, residual=x)
     return _unembed(params, cfg, x), caches
 
 
@@ -169,9 +187,16 @@ def lm_prefill(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
             use_rope=cfg.use_rope, page_table=page_tables,
             start_pos=start_pos)
         x = x + h
-        # the residual rides the w_down epilogue
-        x = mlp_apply(lp["mlp"], rmsnorm(lp["post_norm"], x),
-                      activation=cfg.activation, residual=x)
+        if "moe" in lp:
+            y, _ = moe_apply(lp["moe"], rmsnorm(lp["post_norm"], x),
+                             num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             activation=cfg.activation)
+            x = x + y
+        else:
+            # the residual rides the w_down epilogue
+            x = mlp_apply(lp["mlp"], rmsnorm(lp["post_norm"], x),
+                          activation=cfg.activation, residual=x)
     return _unembed(params, cfg, x), caches
 
 

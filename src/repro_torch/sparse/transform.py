@@ -2,17 +2,18 @@
 
 Counterpart of ``pack_params`` and ``sparsity_summary`` in
 ``src/repro/sparse/transform.py``.  ``pack_params`` replaces each
-prunable 2-D ``kernel`` leaf with a ``BSRWeight`` packed on the weight's
-own device, so every projection of the model routes through the BSR
-kernel at ``models/layers.matmul``.  3-D (expert) weights need
-``BSRPlanes``, which is not ported yet.
+prunable 2-D ``kernel`` leaf with a ``BSRWeight`` and each 3-D (expert)
+leaf with a ``BSRPlanes``, packed on the weight's own device, so every
+projection routes through the BSR kernel at ``models/layers.matmul`` and
+every expert stack through the planes kernel at
+``models/layers.expert_matmul``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional
 
 from repro_torch.core.masks import _get_path, _set_path, build_structures, map_tree
-from repro_torch.core.packing import BSRWeight, pack_bsr
+from repro_torch.core.packing import BSRPlanes, BSRWeight, pack_bsr
 from repro_torch.core.structures import (
     PRUNABLE_MIN_SIZE,
     BlockingSpec,
@@ -24,7 +25,7 @@ __all__ = ["pack_params", "is_packed_leaf", "sparsity_summary"]
 
 
 def is_packed_leaf(x: Any) -> bool:
-    return isinstance(x, BSRWeight)
+    return isinstance(x, (BSRWeight, BSRPlanes))
 
 
 def pack_params(
@@ -49,11 +50,18 @@ def pack_params(
     for info in structures.infos:
         w = _get_path(params, info.path)
         m = None if masks is None else _get_path(masks, info.path)
-        if w.ndim != 2:
-            raise NotImplementedError(
-                f"{info.path}: packing {w.ndim}-D weights needs BSRPlanes, "
-                "which the torch port does not have yet")
-        _set_path(packed, info.path, pack_bsr(w, info.blocking, mask=m))
+        if w.ndim == 2:
+            leaf: Any = pack_bsr(w, info.blocking, mask=m)
+        else:
+            k, n = w.shape[-2], w.shape[-1]
+            w3 = w.reshape(info.planes, k, n)
+            m3 = None if m is None else m.reshape(info.planes, k, n)
+            leaf = BSRPlanes.from_planes(
+                tuple(pack_bsr(w3[e], info.blocking,
+                               mask=None if m3 is None else m3[e])
+                      for e in range(info.planes)),
+                shape=tuple(int(s) for s in w.shape))
+        _set_path(packed, info.path, leaf)
     return packed
 
 
@@ -66,7 +74,8 @@ def sparsity_summary(packed: Mapping[str, Any]) -> Dict[str, Any]:
             continue
         per_path[path] = leaf.density()
         nnz += leaf.nnz_blocks
-        total += leaf.grid_k * leaf.grid_n
+        planes = leaf.num_planes if isinstance(leaf, BSRPlanes) else 1
+        total += planes * leaf.grid_k * leaf.grid_n
     return {
         "per_path": per_path,
         "nnz_blocks": int(nnz),

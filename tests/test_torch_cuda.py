@@ -12,9 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import BlockingSpec, pack_bsr
+from repro_torch.core import BlockingSpec, BSRPlanes, pack_bsr
 from repro_torch.kernels import Epilogue, launch_counts, ops, reset_launch_counts
-from repro_torch.kernels.block_sparse_matmul import bsr_matmul_plain
+from repro_torch.kernels.block_sparse_matmul import (
+    bsr_matmul_plain,
+    bsr_planes_matmul_plain,
+)
+from repro_torch.kernels.structure_norms import structure_norms_plain
 from repro_torch.kernels.paged_attention import (
     paged_attention_decode_plain,
     paged_attention_prefill_plain,
@@ -56,6 +60,47 @@ def test_bsr_kernel_matches_plain(card, m, dtype, tol):
     torch.cuda.synchronize()
     assert launch_counts["bsr_matmul"] == 1
     assert _rel_err(got, bsr_matmul_plain(x, bsr, epilogue=epi)) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("m", [1, 8, 47])
+def test_bsr_planes_kernel_matches_plain(card, m, dtype, tol):
+    """Three planes, one dead and one fully dense, ragged K/N, the
+    silu * up epilogue with a shared bias: one launch for the stack."""
+    g = torch.Generator(device=card).manual_seed(100 + m)
+    e, k, n, bk, bn = 3, 300, 200, 64, 64
+    planes = []
+    for density in (0.5, 0.0, 1.0):
+        w = torch.randn((k, n), generator=g, device=card).to(dtype)
+        alive = torch.rand((5, 4), generator=g, device=card) < density
+        mask = alive.repeat_interleave(bk, 0).repeat_interleave(bn, 1)[:k, :n]
+        planes.append(pack_bsr(w, BlockingSpec(bk, bn), mask=mask))
+    stack = BSRPlanes.from_planes(tuple(planes), shape=(e, k, n))
+    x = torch.randn((e, m, k), generator=g, device=card).to(dtype)
+    epi = Epilogue(bias=torch.randn(n, generator=g, device=card),
+                   activation="silu",
+                   multiplier=torch.randn((e, m, n), generator=g, device=card).to(dtype))
+    reset_launch_counts()
+    got = ops.bsr_planes_matmul(x, stack, epilogue=epi)
+    torch.cuda.synchronize()
+    assert launch_counts["bsr_planes_matmul"] == 1
+    want = bsr_planes_matmul_plain(x, stack, epilogue=epi)
+    assert _rel_err(got, want) <= tol
+    dead = torch.nn.functional.silu(epi.bias)[None] * epi.multiplier[1].float()
+    assert _rel_err(got[1], dead) <= tol          # dead plane: epilogue(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kshape,blocks", [((1024, 2816), (128, 128)),
+                                           ((100, 36), (32, 32))])
+def test_structure_norms_kernel_matches_plain(card, kshape, blocks, dtype):
+    g = torch.Generator(device=card).manual_seed(kshape[0])
+    w = torch.randn(kshape, generator=g, device=card).to(dtype)
+    reset_launch_counts()
+    got = ops.structure_norms(w, *blocks)
+    torch.cuda.synchronize()
+    assert launch_counts["structure_norms"] == 1
+    assert _rel_err(got, structure_norms_plain(w, *blocks)) <= 1e-5
 
 
 @pytest.mark.parametrize("q_offset", [0, 8])

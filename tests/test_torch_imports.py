@@ -69,6 +69,9 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
 def test_unported_archs_and_mixers_raise():
     with pytest.raises(KeyError):
         get_config("mixtral-8x7b")
-    cfg = make_smoke(get_config("qwen1.5-0.5b"), mlp_pattern=("moe",))
-    with pytest.raises(NotImplementedError, match="MoE"):
+    cfg = make_smoke(get_config("qwen1.5-0.5b"), mixer_pattern=("mamba",))
+    with pytest.raises(NotImplementedError, match="mamba"):
+        init_params(cfg, device="cpu")
+    cfg = make_smoke(get_config("granite-moe-1b-a400m"), moe_impl="alltoall")
+    with pytest.raises(NotImplementedError, match="alltoall"):
         init_params(cfg, device="cpu")
