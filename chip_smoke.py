@@ -15,9 +15,14 @@ Phases, any failure ends the run with a non-zero exit code:
    and a fully dense plane; paged decode and prefill: page sizes 4/8/16,
    GQA 16/16, 16/8, 8/2, 4/1, ragged lengths including 0, NaN in every
    page no row owns, q_offset 0/ps/3ps; structure norms: qwen's and
-   granite's expert weights and an odd one, 128 and 32 tiles), and the
-   MoE router's logits held to be the same for a token alone and in a
-   batch (reported);
+   granite's expert weights and an odd one, 128 and 32 tiles; BSR also a
+   fully dense 88-slot column and a 1000-slot column), the MoE router's
+   logits held to be the same for a token alone and in a batch
+   (reported), and batch invariance in fp32 (gated): a BSR row is
+   bit-identical alone and inside M 4/47/200 (the wide-column layouts
+   here, qwen's knapsack-pruned layouts after its main path), a prefill
+   position bit-identical in a full, a tail (q_offset 3 ps) and a
+   ragged-batch call;
 3. two main paths, each served through ``ServingEngine`` at full width
    from a seeded generator, knapsack-pruned at 0.75 with 128x128 blocks
    and BSR-packed, on the same traffic: qwen1.5-0.5b (24 layers, d_model
@@ -38,7 +43,10 @@ Phases, any failure ends the run with a non-zero exit code:
    shapes (held to the phase-2 tolerances), the card's busy share over
    each run (a) from ``torch.profiler``, and the kernel's, the plain
    version's and one PyTorch library call's time at the main paths'
-   shapes beside the least time the card could take (``bound_ms``).
+   shapes beside the least time the card could take (``bound_ms``), the
+   launch geometry of the two redesigned kernels, prefill at two longer
+   prompts (qwen's heads, S 512 and S 256 after 256 cached tokens), and
+   the timer's floor (a one-element add).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository beside it, the script exits non-zero and prints
@@ -149,6 +157,28 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def ptxas_lines(text: str):
+    """(kernel instance, line) for each register / spill line of an
+    ``nvcc -Xptxas -v`` log, the instance demangled where ``c++filt``
+    exists."""
+    import re
+    import shutil
+    pairs, entry = [], "?"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        elif "registers" in line or "spill" in line:
+            pairs.append((entry, line.replace("ptxas info    :", "").strip()))
+    if pairs and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(e for e, _ in pairs),
+                               capture_output=True, text=True).stdout.split("\n")
+        if len(names) >= len(pairs):
+            pairs = [(n.replace("(anonymous namespace)::", "").split("(")[0]
+                      .replace("void ", ""), l) for n, (_, l) in zip(names, pairs)]
+    return pairs
+
+
 def bound_ms(nbytes: float, flops: float, dtype_name: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -190,6 +220,30 @@ def check_bsr(torch, dev) -> float:
 
     worst = 0.0
     i = 0
+
+    def run(g, bsr, dtype, **info):
+        """M 1/4/64/200 against the plain version, epilogues in turn."""
+        nonlocal i, worst
+        k, n = bsr.shape
+        for m in (1, 4, 64, 200):
+            spec = EPIS[i % len(EPIS)]
+            i += 1
+            x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+            epi = make_epilogue(torch, spec, m, n, dtype, g, dev)
+            got = ops.bsr_matmul(x, bsr, epilogue=epi)
+            want = bsr_matmul_plain(x, bsr, epilogue=epi)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            ok = err <= TOL[dname(dtype)] and got.dtype == dtype
+            REPORT["checks"].append(dict(
+                kernel="bsr_matmul", m=m, k=k, n=n, dtype=dname(dtype),
+                epilogue=spec, rel_err=err, ok=ok, **info))
+            if not ok:
+                raise AssertionError(
+                    f"bsr_matmul M={m} K={k} N={n} {info} {dname(dtype)} "
+                    f"{spec}: error {err:.3g} > {TOL[dname(dtype)]}")
+            worst = max(worst, err)
+
     for (k, n) in [(1024, 1024), (1024, 2816), (2816, 1024), (100, 36)]:
         for (bk, bn) in [(128, 128), (32, 32)]:
             for dtype in (torch.float32, torch.bfloat16):
@@ -202,30 +256,101 @@ def check_bsr(torch, dev) -> float:
                 ebk, ebn = min(bk, k), min(bn, n)
                 mask = alive.repeat_interleave(ebk, 0).repeat_interleave(ebn, 1)
                 bsr = pack_bsr(w, BlockingSpec(bk, bn), mask=mask[:k, :n])
-                pad = int((bsr.indices < 0).sum())
-                for m in (1, 4, 64, 200):
-                    spec = EPIS[i % len(EPIS)]
-                    i += 1
-                    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
-                    epi = make_epilogue(torch, spec, m, n, dtype, g, dev)
-                    got = ops.bsr_matmul(x, bsr, epilogue=epi)
-                    want = bsr_matmul_plain(x, bsr, epilogue=epi)
-                    torch.cuda.synchronize()
-                    err = rel_err(got, want)
-                    ok = err <= TOL[dname(dtype)] and got.dtype == dtype
-                    REPORT["checks"].append(dict(
-                        kernel="bsr_matmul", m=m, k=k, n=n, bk=bk, bn=bn,
-                        dtype=dname(dtype), epilogue=spec, padding_slots=pad,
-                        rel_err=err, ok=ok))
-                    if not ok:
-                        raise AssertionError(
-                            f"bsr_matmul M={m} K={k} N={n} blocks {bk}x{bn} "
-                            f"{dname(dtype)} {spec}: error {err:.3g} > "
-                            f"{TOL[dname(dtype)]}")
-                    worst = max(worst, err)
-    log(f"  bsr_matmul: {i} cases OK, worst normalized error {worst:.3g} "
-        f"(tolerance fp32 {TOL['float32']}, bf16 {TOL['bfloat16']})")
+                run(g, bsr, dtype, bk=bk, bn=bn,
+                    padding_slots=int((bsr.indices < 0).sum()))
+    # a column spanning several slot groups, and one near the slot cap
+    for name, (k, n, bk, bn, dense, p_live) in BSR_WIDE_COLUMNS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(3000 + i)
+            bsr = bsr_layout(torch, g, dev, k, n, bk, bn, dense, p_live, dtype)
+            run(g, bsr, dtype, case=name, bk=bk, bn=bn, max_nnz=bsr.max_nnz)
+    log(f"  bsr_matmul: {i} cases OK (with a dense column and a near-cap "
+        f"column), worst normalized error {worst:.3g} (tolerance fp32 "
+        f"{TOL['float32']}, bf16 {TOL['bfloat16']})")
     return worst
+
+
+# (K, N, bk, bn, dense block column, live share): qwen's down projection
+# at 32x32 tiles with one fully dense column (88 live slots, several slot
+# groups), and a column of 1000 live slots, near the slot cap of one
+# group (1024)
+BSR_WIDE_COLUMNS = {
+    "down_32x32_dense_column": (2816, 1024, 32, 32, 5, 0.25),
+    "near_cap_column": (32000, 64, 32, 32, 1, 0.02),
+}
+
+
+def bsr_layout(torch, g, dev, k, n, bk, bn, dense, p_live, dtype):
+    from repro_torch.core import BlockingSpec, pack_bsr
+    w = torch.randn((k, n), generator=g, device=dev).to(dtype)
+    alive = torch.rand((-(-k // bk), -(-n // bn)), generator=g, device=dev) < p_live
+    alive[:, dense] = True
+    mask = alive.repeat_interleave(bk, 0).repeat_interleave(bn, 1)[:k, :n]
+    return pack_bsr(w, BlockingSpec(bk, bn), mask=mask)
+
+
+def check_bsr_invariance(torch, dev, weights) -> int:
+    """Gated: in fp32 a row's BSR output is bit-identical computed alone
+    (M 1) and inside M 4, 47 and 200, for each (name, BSRWeight)."""
+    from repro_torch.kernels import Epilogue, ops
+    n_rows = 0
+    for name, bsr in weights:
+        k, n = bsr.shape
+        g = torch.Generator(device=dev).manual_seed(k + n)
+        x = torch.randn((200, k), generator=g, device=dev)
+        mult = torch.randn((200, n), generator=g, device=dev)
+
+        def run(lo, hi):
+            return ops.bsr_matmul(x[lo:hi], bsr, epilogue=Epilogue(
+                activation="silu", multiplier=mult[lo:hi]))
+
+        full = run(0, 200)
+        same = {m: bool(torch.equal(run(0, m), full[:m])) for m in (4, 47)}
+        same["alone"] = all(bool(torch.equal(run(r, r + 1), full[r:r + 1]))
+                            for r in (0, 1, 3, 46, 199))
+        REPORT["checks"].append(dict(kernel="bsr_matmul", invariance=name,
+                                     k=k, n=n, max_nnz=bsr.max_nnz,
+                                     bit_identical=same, ok=all(same.values())))
+        if not all(same.values()):
+            raise AssertionError(f"bsr_matmul {name}: rows differ across M "
+                                 f"(bit-identical: {same})")
+        n_rows += 1
+    return n_rows
+
+
+def check_prefill_invariance(torch, dev) -> int:
+    """Gated: in fp32 a query position's prefill output is bit-identical
+    in a full prefill (q_offset 0, S = L), a tail prefill (q_offset 3 ps)
+    and a ragged batch of 3 rows, at qwen's and granite's heads."""
+    from repro_torch.kernels import ops
+    n = 0
+    dh, L = 64, 75
+    for ps in (8, 16):
+        for h, kvh in ((16, 16), (16, 8)):
+            g = torch.Generator(device=dev).manual_seed(ps + h + kvh)
+            lens = torch.tensor([L + 9, L, 11], dtype=torch.int32, device=dev)
+            kp, vp, tbl = poisoned_pools(torch, g, dev, 3, kvh, dh, ps,
+                                         -(-(L + 9) // ps), lens, torch.float32)
+            q = torch.randn((3, L + 9, h, dh), generator=g, device=dev)
+            one = lens[1:2].contiguous()
+            t1 = tbl[1:2].contiguous()
+            full = ops.paged_attention_prefill(q[1:2, :L].contiguous(), kp, vp,
+                                               t1, one)
+            off = 3 * ps
+            tail = ops.paged_attention_prefill(q[1:2, off:L].contiguous(), kp,
+                                               vp, t1, one, q_offset=off)
+            batch = ops.paged_attention_prefill(q, kp, vp, tbl, lens)
+            same = {"tail": bool(torch.equal(tail, full[:, off:])),
+                    "ragged_batch": bool(torch.equal(batch[1, :L], full[0]))}
+            REPORT["checks"].append(dict(kernel="paged_attention_prefill",
+                                         invariance=f"ps {ps} H {h} K {kvh}",
+                                         bit_identical=same,
+                                         ok=all(same.values())))
+            if not all(same.values()):
+                raise AssertionError(f"paged prefill ps={ps} H={h} K={kvh}: "
+                                     f"positions differ across calls {same}")
+            n += 1
+    return n
 
 
 def poisoned_pools(torch, g, dev, b, kvh, dh, ps, max_pages, lens, pool_dtype):
@@ -753,7 +878,7 @@ def epilogue_bytes(epi) -> int:
 def time_bsr(torch, timer, path, cap):
     from repro_torch.core import bsr_to_dense
     from repro_torch.kernels import ops
-    from repro_torch.kernels.block_sparse_matmul import bsr_matmul_plain
+    from repro_torch.kernels.block_sparse_matmul import bsr_grid, bsr_matmul_plain
     rows = []
     for (phase, shape, kind), (x, bsr, epi) in sorted(cap.bsr.items()):
         m = x.numel() // shape[0]
@@ -771,12 +896,14 @@ def time_bsr(torch, timer, path, cap):
                    bsr_matmul_plain(x2, bsr, epilogue=epi2), TOL[dname(x.dtype)])
         bk, bn = bsr.blocking.bk, bsr.blocking.bn
         z = bsr.nnz_blocks
+        grid, _, bm = bsr_grid(m, bsr, x.dtype)
         live = live_elems(bsr.flat_rows, bsr.flat_cols, z, *shape, bk, bn)
         nbytes = (m * shape[0] * es + z * bk * bn * es + bsr.indices.numel() * 8
                   + m * shape[1] * es + epilogue_bytes(epi))
         bnd, by = bound_ms(nbytes, 2.0 * m * live, dname(x.dtype))
         row = dict(name="bsr_matmul", path=path, phase=phase, m=m, k=shape[0],
-                   n=shape[1], epilogue=kind, nnz_blocks=z, ms=ms,
+                   n=shape[1], epilogue=kind, nnz_blocks=z, max_nnz=bsr.max_nnz,
+                   grid=list(grid), ctas=grid[0] * grid[1] * grid[2], bm=bm, ms=ms,
                    plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
                    max_abs_err=err)
         rows.append(row)
@@ -869,7 +996,8 @@ def time_decode(torch, timer, path, cap):
 def time_prefill(torch, timer, path, cap):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attention import paged_attention_prefill_plain
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_prefill_plain, prefill_grid)
     rows = []
     for hit, (qp, kp2, vp2, tbl2, lens, q_offset) in sorted(cap.prefill.items()):
         dev = qp.device
@@ -906,13 +1034,31 @@ def time_prefill(torch, timer, path, cap):
                   + 2 * sum(lens_l) * kvh * dh * kp2.element_size()
                   + qp.numel() * 4 + 4 * (tbl2.numel() + b))
         bnd, by = bound_ms(nbytes, 4.0 * pairs * h * dh, "float32")
+        grid = prefill_grid(b, s, h, kvh)
         row = dict(name="paged_attention_prefill", path=path, b=b, s=s, h=h,
                    kvh=kvh, dh=dh, ps=ps, q_offset=q_offset, lengths=lens_l,
-                   ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                   ctas=grid[0] * grid[1] * grid[2], ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
                    bound_by=by, max_abs_err=err)
         rows.append(row)
         report_row(row)
     return rows
+
+
+def long_prompts(torch, dev):
+    """Prompt lengths users send beyond the smoke traffic, at qwen's heads
+    (16/16, head_dim 64, page size 8), fp32: S 512 at q_offset 0 and S 256
+    at q_offset 256 (the tail of a 512-token context after a prefix hit).
+    Shaped like ``Capture.prefill`` for ``time_prefill``."""
+    from types import SimpleNamespace
+    g = torch.Generator(device=dev).manual_seed(13)
+    pre = {}
+    for q_offset, s in ((0, 512), (256, 256)):
+        lens = torch.tensor([q_offset + s], dtype=torch.int32, device=dev)
+        kp, vp, tbl = poisoned_pools(torch, g, dev, 1, 16, 64, 8, 65, lens,
+                                     torch.float32)
+        q = torch.randn((1, s, 16, 64), generator=g, device=dev)
+        pre[q_offset > 0] = (q, kp, vp, tbl, lens, q_offset)
+    return SimpleNamespace(prefill=pre)
 
 
 def time_norms(torch, timer, dev):
@@ -959,12 +1105,18 @@ def timings(torch, dev, caps, launches):
     ``kernels`` line (one headline shape per kernel, launches summed
     over the paths' runs (a))."""
     timer = Timer(dev)
+    one = torch.zeros(1, device=dev)
+    floor = timer(lambda: one.add_(1))
+    REPORT["timer_floor_ms"] = floor
+    log(f"  timer floor (a one-element add_ after the L2 flush): {floor:.4f} ms")
     rows = []
     for path, cap in caps.items():
         rows += time_bsr(torch, timer, path, cap)
         rows += time_planes(torch, timer, path, cap)
         rows += time_decode(torch, timer, path, cap)
         rows += time_prefill(torch, timer, path, cap)
+    rows += time_prefill(torch, timer, "qwen1.5-0.5b, long prompts",
+                         long_prompts(torch, dev))
     rows.append(time_norms(torch, timer, dev))
 
     def pick(name, **want):
@@ -1028,9 +1180,8 @@ def main() -> int:
     log(f"phase 1: built {len(_build.SOURCES)} CUDA kernels in {secs:.1f}s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, text in _build.build_logs().items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for entry, line in ptxas_lines(text):
+            log(f"  {name}: {entry}: {line}")
 
     log("phase 2: kernels against their plain versions")
     check_bsr(torch, dev)
@@ -1038,6 +1189,15 @@ def main() -> int:
     check_attention(torch, dev)
     check_norms(torch, dev)
     check_router(torch, dev)
+    wide = [(name, bsr_layout(torch, torch.Generator(device=dev).manual_seed(j),
+                              dev, *spec, torch.float32))
+            for j, (name, spec) in enumerate(BSR_WIDE_COLUMNS.items())]
+    n_bsr = check_bsr_invariance(torch, dev, wide)
+    n_pre = check_prefill_invariance(torch, dev)
+    log(f"  batch invariance (fp32, gated): bsr_matmul rows bit-identical "
+        f"alone and in M 4/47/200 on {n_bsr} layouts {[n for n, _ in wide]}; "
+        f"paged prefill positions bit-identical in full, tail (q_offset 3 ps) "
+        f"and ragged-batch calls in {n_pre} cases")
     log(f"  phase 2 done at {time.perf_counter() - t_start:.1f}s")
 
     paths = {}
@@ -1045,6 +1205,16 @@ def main() -> int:
         log(f"phase 3: main path, {arch} full width, knapsack 0.75, BSR 128x128")
         paths[arch] = main_path(torch, dev, gpu_line, arch, cf_a=cf_a)
         log(f"  {arch} done at {time.perf_counter() - t_start:.1f}s")
+        if arch == "qwen1.5-0.5b":
+            # the batch-invariance gate of phase 2 on the real pruned layouts
+            real = [(f"{arch} {shape[0]}x{shape[1]} {kind}", bsr)
+                    for (phase, shape, kind), (_, bsr, _) in
+                    sorted(paths[arch][2].bsr.items()) if phase == "decode"]
+            check_bsr_invariance(torch, dev, real)
+            log(f"  batch invariance (fp32, gated): bsr_matmul rows "
+                f"bit-identical alone and in M 4/47/200 on qwen's {len(real)} "
+                f"knapsack-pruned layouts "
+                f"{[(b.shape, b.max_nnz) for _, b in real]}")
 
     log("phase 4: kernel times at the main paths' shapes (CUDA events)")
     kernels = timings(torch, dev, {a: p[2] for a, p in paths.items()},

@@ -1,7 +1,7 @@
-// One kernel body for the port's block-sparse (BSR) matmuls, for Hopper
-// (sm_90a): bsr_matmul.cu (one weight) and bsr_planes_matmul.cu (a stack
-// of per-plane weights, one launch) both run `tile` below, so both share
-// its numerics.
+// Kernel body of the BSR planes matmul, for Hopper (sm_90a):
+// bsr_planes_matmul.cu (a stack of per-plane weights, one launch) runs
+// `tile` below on each plane.  The 2-D kernel has its own body
+// (bsr_split.cuh) and shares only the activation codes and `activate`.
 //
 // `tile` computes one block of y = act(x @ W_bsr + bias) * mult + residual
 // for x (M, K) and a BSR weight stored as the packed flat store blocks

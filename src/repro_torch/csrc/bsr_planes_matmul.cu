@@ -10,10 +10,10 @@
 // (E, M, K) and a BSRPlanes stack: blocks (E, nnz_pad, bk, bn),
 // indices/slots (E, grid_n, max_nnz), the bias (N,) shared by every
 // plane, mult/res/out (E, M, N).  The TPU grid's plane axis becomes
-// blockIdx.z; inside a plane each block runs the body of the 2-D kernel
-// (bsr_body.cuh) on that plane's offsets, so the numerics, the bound
-// (bytes: every live expert tile is read once for a few capacity rows)
-// and the design are those of bsr_matmul.cu.  A dead plane (every slot
+// blockIdx.z; inside a plane each block runs the BSR body of
+// bsr_body.cuh on that plane's offsets; the bound (bytes: every live
+// expert tile is read once for a few capacity rows) and the design are
+// described there.  A dead plane (every slot
 // -1) loads nothing and writes epilogue(0), as the TPU kernel applies its
 // epilogue at the last slot step whether or not the plane is live.  Like
 // the reference, it computes every plane of the capacity buffer, routed

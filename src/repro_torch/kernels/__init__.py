@@ -1,9 +1,9 @@
 """Hand-written Hopper kernels of the port, each with its plain version.
 
 * block_sparse_matmul — BSR matmul with the fused epilogue, for one
-  weight and for a stack of expert planes in one launch
-  (``csrc/bsr_matmul.cu``, ``csrc/bsr_planes_matmul.cu``, one body in
-  ``csrc/bsr_body.cuh``)
+  weight (``csrc/bsr_matmul.cu``, body ``csrc/bsr_split.cuh``) and for a
+  stack of expert planes in one launch (``csrc/bsr_planes_matmul.cu``,
+  body ``csrc/bsr_body.cuh``)
 * paged_attention     — paged decode and causal prefill with an online
   softmax over the page walk (``csrc/paged_decode.cu``,
   ``csrc/paged_prefill.cu``)

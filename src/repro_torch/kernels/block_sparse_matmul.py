@@ -9,9 +9,11 @@ accumulation and returns ``x.dtype``; the planes variant does so for
 every plane ``e`` of ``x (E, M, K)`` against its own BSR weight in one
 launch, with the bias shared across planes:
 
-* ``bsr_matmul_cuda`` / ``bsr_planes_matmul_cuda`` launch
-  ``csrc/bsr_matmul.cu`` / ``csrc/bsr_planes_matmul.cu`` (one kernel
-  body, ``csrc/bsr_body.cuh``) on CUDA tensors;
+* ``bsr_matmul_cuda`` launches ``csrc/bsr_matmul.cu`` (body
+  ``csrc/bsr_split.cuh``) on CUDA tensors, with the slot-group partition
+  and the row tile chosen here (``bsr_slot_groups``, ``bsr_row_tile``);
+* ``bsr_planes_matmul_cuda`` launches ``csrc/bsr_planes_matmul.cu``
+  (body ``csrc/bsr_body.cuh``);
 * ``bsr_matmul_plain`` / ``bsr_planes_matmul_plain`` follow
   ``src/repro/kernels/ref.py:43,66``: one batched GEMM over the live
   tiles of the flat store(s), then ``index_add_`` over the output
@@ -21,7 +23,7 @@ launch, with the bias shared across planes:
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,11 +32,60 @@ from . import _build
 from .epilogue import Epilogue, apply_epilogue
 
 __all__ = ["bsr_matmul_plain", "bsr_matmul_cuda", "bsr_planes_matmul_plain",
-           "bsr_planes_matmul_cuda", "ACT_CODES"]
+           "bsr_planes_matmul_cuda", "bsr_slot_groups", "bsr_row_tile",
+           "bsr_grid", "ACT_CODES"]
 
 # activation codes of csrc/bsr_body.cuh
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3, "sigmoid": 4}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# csrc/bsr_split.cuh: output columns per CTA, slot groups per cluster (the
+# portable cluster size) and slots per group held in shared memory
+BSR_STRIPE = 32
+BSR_MAX_GROUPS = 8
+BSR_MAX_GROUP_SLOTS = 1024
+H100_SMS = 132            # streaming multiprocessors of an H100 SXM
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bsr_slot_groups(grid_n: int, max_nnz: int, bn: int) -> Tuple[int, int]:
+    """(slots per group, groups): the fixed cut of every block column's
+    ``max_nnz`` slots into consecutive groups, one CTA each, whose partial
+    sums the kernel adds in group order.
+
+    It depends on the weight's layout alone (``grid_n``, ``max_nnz`` and
+    the stripe count from ``bn``), never on M, so a row's sum has the same
+    order in every call.  Groups are made small enough that
+    ``grid_n * stripes * groups`` reaches one CTA per SM of an H100 where
+    the slots allow it, and at most ``BSR_MAX_GROUPS`` (one cluster)."""
+    ctas = grid_n * _cdiv(bn, BSR_STRIPE)
+    want = _cdiv(H100_SMS, ctas)
+    per = max(min(max_nnz // want, BSR_MAX_GROUP_SLOTS),
+              _cdiv(max_nnz, BSR_MAX_GROUPS), 1)
+    return per, _cdiv(max_nnz, per)
+
+
+def bsr_row_tile(m: int, dtype: torch.dtype) -> int:
+    """Rows per CTA.  fp32: 4 or 8 at decode sizes, 16 up to 48 rows (the
+    engine's prompt tails; more CTAs, each with less FFMA work, measured
+    faster there than one 64-row tile), 64 beyond.  bf16: one mma m16
+    tile up to 16 rows, 64 beyond."""
+    if dtype == torch.float32:
+        return 4 if m <= 4 else 8 if m <= 8 else 16 if m <= 48 else 64
+    return 16 if m <= 16 else 64
+
+
+def bsr_grid(m: int, bsr: BSRWeight, dtype: torch.dtype):
+    """The 2-D kernel's launch geometry for x (m, K): ((block columns x
+    stripes, groups, row tiles), slots per group, row tile)."""
+    per, groups = bsr_slot_groups(bsr.grid_n, bsr.max_nnz, bsr.blocking.bn)
+    bm = bsr_row_tile(m, dtype)
+    grid = (bsr.grid_n * _cdiv(bsr.blocking.bn, BSR_STRIPE), groups,
+            _cdiv(m, bm))
+    return grid, per, bm
 
 
 def bsr_matmul_plain(x: torch.Tensor, bsr: BSRWeight, *,
@@ -156,14 +207,18 @@ def bsr_matmul_cuda(x: torch.Tensor, bsr: BSRWeight, *,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
+    (_, groups, _), per, bm = bsr_grid(m, bsr, x.dtype)
+    if per > BSR_MAX_GROUP_SLOTS:
+        raise ValueError(f"bsr_matmul_cuda: max_nnz {bsr.max_nnz} > "
+                         f"{BSR_MAX_GROUPS * BSR_MAX_GROUP_SLOTS}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _launcher("bsr_matmul", 8)(
+        err = _launcher("bsr_matmul", 11)(
             _DTYPE_CODES[x.dtype], x.data_ptr(), bsr.blocks.data_ptr(),
             bsr.indices.data_ptr(), bsr.slots.data_ptr(), _ptr(bias),
             _ptr(mult), _ptr(res), out.data_ptr(), m, k, n,
-            bsr.blocking.bk, bsr.blocking.bn, bsr.grid_n, bsr.max_nnz, act,
-            stream)
+            bsr.blocking.bk, bsr.blocking.bn, bsr.grid_n, bsr.max_nnz, bm,
+            groups, per, act, stream)
     _build.check("bsr_matmul", err)
     _build.launch_counts["bsr_matmul"] += 1
     return out

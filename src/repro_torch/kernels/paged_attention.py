@@ -30,14 +30,25 @@ __all__ = [
     "paged_attention_decode_cuda",
     "paged_attention_prefill_plain",
     "paged_attention_prefill_cuda",
+    "prefill_grid",
 ]
 
 NEG_INF = -1e30  # finite mask sentinel (matches models/attention.py)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/paged_prefill.cu: query rows (position, head) per CTA, and the
+# head dims it is built for
+PREFILL_ROWS = 16
+PREFILL_HEAD_DIMS = (64, 128)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def prefill_grid(b: int, s: int, h: int, kvh: int):
+    """The prefill kernel's grid: one CTA per (row, KV head, tile of
+    ``PREFILL_ROWS`` query rows of the GQA group)."""
+    return b, kvh, _cdiv(s * (h // kvh), PREFILL_ROWS)
 
 
 def _rows(v: torch.Tensor, b: int) -> torch.Tensor:
@@ -235,18 +246,20 @@ def paged_attention_prefill_cuda(q, k_pool, v_pool, page_table, lengths, *,
                          f"lengths {tuple(lengths.shape)} vs B={b}")
     if q_offset < 0:
         raise ValueError(f"{name}: q_offset {q_offset} < 0")
+    if dh not in PREFILL_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {dh} not one of {PREFILL_HEAD_DIMS}")
     q = q.contiguous()
     out = torch.empty((b, s, h, dh), dtype=torch.float32, device=q.device)
     if b == 0 or s == 0:
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _launcher(name, "paged_prefill_launch", 6, 8)(
+        err = _launcher(name, "paged_prefill_launch", 6, 9)(
             _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             b, s, h, kvh, dh, k_pool.shape[1], page_table.shape[1],
-            int(q_offset), 1.0 / math.sqrt(dh), stream)
+            int(q_offset), PREFILL_ROWS, 1.0 / math.sqrt(dh), stream)
     _build.check(name, err)
     _build.launch_counts[name] += 1
     return out

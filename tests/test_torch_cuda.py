@@ -130,3 +130,118 @@ def test_paged_kernels_match_plain(card, q_offset):
     want = paged_attention_prefill_plain(qp, kp, vp, tbl, lens, q_offset=q_offset)
     assert torch.isfinite(got).all() and _rel_err(got, want) <= 2e-5
     np.testing.assert_array_equal(got[0].cpu().numpy(), 0.0)
+
+
+def _layout(card, g, k, n, bk, bn, dense_col=None, p_live=0.3, dtype=torch.float32):
+    """A random BSR weight: tiles live with probability ``p_live``, block
+    column ``dense_col`` fully live."""
+    w = torch.randn((k, n), generator=g, device=card).to(dtype)
+    gk, gn = -(-k // bk), -(-n // bn)
+    alive = torch.rand((gk, gn), generator=g, device=card) < p_live
+    if dense_col is not None:
+        alive[:, dense_col] = True
+    mask = alive.repeat_interleave(bk, 0).repeat_interleave(bn, 1)[:k, :n]
+    return pack_bsr(w, BlockingSpec(bk, bn), mask=mask)
+
+
+# (K, N, bk, bn, dense column, live share): qwen's down projection at
+# 32x32 tiles with one dense column (88 live slots, several slot groups),
+# a column near the slot cap of one group (1000 live slots), and a
+# 128x128 decode layout
+INVARIANCE_LAYOUTS = {
+    "down_32x32_dense_column": (2816, 1024, 32, 32, 5, 0.25),
+    "near_cap": (32000, 64, 32, 32, 1, 0.02),
+    "qkv_128x128": (1024, 1024, 128, 128, None, 0.3),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(INVARIANCE_LAYOUTS))
+def test_bsr_rows_bit_identical_across_m(card, layout):
+    """fp32: a row's output is the same bit for bit alone (M 1) and
+    inside M 4, 47 and 200 (the stream == solo decode gate needs it)."""
+    k, n, bk, bn, dense, p_live = INVARIANCE_LAYOUTS[layout]
+    g = torch.Generator(device=card).manual_seed(k + n)
+    bsr = _layout(card, g, k, n, bk, bn, dense, p_live)
+    x = torch.randn((200, k), generator=g, device=card)
+    mult = torch.randn((200, n), generator=g, device=card)
+    bias = torch.randn(n, generator=g, device=card)
+
+    def run(rows):
+        epi = Epilogue(bias=bias, activation="silu", multiplier=mult[rows])
+        return ops.bsr_matmul(x[rows], bsr, epilogue=epi)
+
+    full = run(slice(0, 200))
+    assert _rel_err(full, bsr_matmul_plain(
+        x, bsr, epilogue=Epilogue(bias=bias, activation="silu",
+                                  multiplier=mult))) <= 1e-5
+    for m in (4, 47):
+        assert torch.equal(run(slice(0, m)), full[:m]), f"M {m}"
+    for r in (0, 3, 46, 199):
+        assert torch.equal(run(slice(r, r + 1)), full[r:r + 1]), f"row {r}"
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("m", [1, 4, 47, 200])
+def test_bsr_kernel_dense_and_near_cap_columns(card, m, dtype, tol):
+    g = torch.Generator(device=card).manual_seed(300 + m)
+    for k, n, bk, bn, dense, p_live in (INVARIANCE_LAYOUTS["down_32x32_dense_column"],
+                                        INVARIANCE_LAYOUTS["near_cap"]):
+        bsr = _layout(card, g, k, n, bk, bn, dense, p_live, dtype)
+        x = torch.randn((m, k), generator=g, device=card).to(dtype)
+        res = torch.randn((m, n), generator=g, device=card).to(dtype)
+        epi = Epilogue(residual=res)
+        got = ops.bsr_matmul(x, bsr, epilogue=epi)
+        assert _rel_err(got, bsr_matmul_plain(x, bsr, epilogue=epi)) <= tol
+
+
+def _prefill_pools(card, g, lens, kvh, dh, ps, max_pages):
+    """Pools holding each row's K/V at its pages (shuffled), NaN in every
+    slot no row owns."""
+    b = len(lens)
+    tbl = (torch.randperm(b * max_pages, generator=g, device=card)
+           .reshape(b, max_pages) + 1)
+    kp = torch.full((b * max_pages + 1, ps, kvh, dh), math.nan, device=card)
+    vp = kp.clone()
+    for r, ln in enumerate(lens):
+        t = torch.arange(ln, device=card)
+        kp[tbl[r, t // ps], t % ps] = torch.randn((ln, kvh, dh), generator=g, device=card)
+        vp[tbl[r, t // ps], t % ps] = torch.randn((ln, kvh, dh), generator=g, device=card)
+    return kp, vp, tbl.to(torch.int32)
+
+
+@pytest.mark.parametrize("h,kvh", [(16, 16), (16, 8)])
+def test_prefill_rows_bit_identical_across_calls(card, h, kvh):
+    """fp32: a query position's output is the same bit for bit in a full
+    prefill (q_offset 0, S = L), a tail prefill (q_offset 3 ps) and a
+    ragged batch of 3 rows."""
+    g = torch.Generator(device=card).manual_seed(h + kvh)
+    dh, ps, L = 64, 8, 75
+    lens = [L + 9, L, 11]                       # the row under test is 1
+    kp, vp, tbl = _prefill_pools(card, g, lens, kvh, dh, ps, -(-(L + 9) // ps))
+    q = torch.randn((3, L + 9, h, dh), generator=g, device=card)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=card)
+    one = torch.tensor([L], dtype=torch.int32, device=card)
+    full = ops.paged_attention_prefill(q[1:2, :L].contiguous(), kp, vp,
+                                       tbl[1:2].contiguous(), one)
+    want = paged_attention_prefill_plain(q[1:2, :L], kp, vp, tbl[1:2], one)
+    assert _rel_err(full, want) <= 2e-5
+    off = 3 * ps
+    tail = ops.paged_attention_prefill(q[1:2, off:L].contiguous(), kp, vp,
+                                       tbl[1:2].contiguous(), one, q_offset=off)
+    assert torch.equal(tail, full[:, off:])
+    batch = ops.paged_attention_prefill(q, kp, vp, tbl, lens_t)
+    assert torch.equal(batch[1, :L], full[0])
+    assert bool((batch[1, L:] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_head_dim_128(card, dtype):
+    g = torch.Generator(device=card).manual_seed(128)
+    lens = [70, 33]
+    kp, vp, tbl = _prefill_pools(card, g, lens, 2, 128, 16, 5)
+    kp, vp = kp.to(dtype), vp.to(dtype)
+    q = torch.randn((2, 70, 8, 128), generator=g, device=card).to(dtype)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=card)
+    got = ops.paged_attention_prefill(q, kp, vp, tbl, lens_t)
+    want = paged_attention_prefill_plain(q, kp, vp, tbl, lens_t)
+    assert torch.isfinite(got).all() and _rel_err(got, want) <= 2e-5

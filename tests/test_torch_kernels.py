@@ -24,11 +24,21 @@ from repro.kernels.paged_attention import (
 )
 from repro_torch.bridge import params_from_reference
 from repro_torch.kernels import Epilogue, launch_counts, ops, reset_launch_counts
-from repro_torch.kernels.block_sparse_matmul import bsr_matmul_plain
+from repro_torch.kernels.block_sparse_matmul import (
+    BSR_MAX_GROUP_SLOTS,
+    BSR_MAX_GROUPS,
+    BSR_STRIPE,
+    H100_SMS,
+    bsr_grid,
+    bsr_matmul_plain,
+    bsr_slot_groups,
+)
 from repro_torch.kernels.epilogue import ACTIVATIONS, apply_epilogue
 from repro_torch.kernels.paged_attention import (
+    PREFILL_ROWS,
     paged_attention_decode_plain,
     paged_attention_prefill_plain,
+    prefill_grid,
 )
 
 TOL = 1e-5
@@ -229,3 +239,47 @@ def test_ops_dispatch_cpu_takes_plain_version_without_launches():
     assert torch.equal(ops.paged_attention_prefill(*pargs, q_offset=4),
                        paged_attention_prefill_plain(*pargs, q_offset=4))
     assert all(v == 0 for v in launch_counts.values()), launch_counts
+
+
+# (grid_n, max_nnz, bn): qwen's 1024- and 2816-wide projections at 128x128
+# tiles, granite's 512-wide k/v, a dense 32x32 column, a column near the
+# slot cap of one group, one slot, and a layout wider than the card
+GROUP_LAYOUTS = [(8, 8, 128), (22, 2, 128), (8, 3, 128), (4, 8, 128),
+                 (32, 88, 32), (2, 1000, 32), (8, 1, 128), (300, 5, 128),
+                 (1, 5000, 128)]
+
+
+@pytest.mark.parametrize("grid_n,max_nnz,bn", GROUP_LAYOUTS)
+def test_bsr_slot_groups_partition(grid_n, max_nnz, bn):
+    """Every slot falls in exactly one group; at most one cluster of
+    groups, each within the kernel's shared-memory slot list; a decode
+    call fills the card where the slots allow it."""
+    per, groups = bsr_slot_groups(grid_n, max_nnz, bn)
+    owner = [s // per for s in range(max_nnz)]
+    assert sorted(set(owner)) == list(range(groups))      # none empty
+    assert 1 <= groups <= BSR_MAX_GROUPS and 1 <= per <= BSR_MAX_GROUP_SLOTS
+    assert per * groups >= max_nnz > per * (groups - 1)
+    ctas = grid_n * -(-bn // BSR_STRIPE) * groups
+    assert ctas >= H100_SMS or groups == min(max_nnz, BSR_MAX_GROUPS)
+
+
+def test_bsr_grid_does_not_change_with_m():
+    """The slot groups and the column grid are the weight's: only the row
+    tiles follow M (so a row's summation order does not)."""
+    rng = np.random.default_rng(41)
+    bsr = params_from_reference(_make_bsr(rng, 1024, 2816, 128, 128, 0.1))
+    for dtype in (torch.float32, torch.bfloat16):
+        geo = {m: bsr_grid(m, bsr, dtype) for m in (1, 4, 8, 47, 200, 512)}
+        for m, (grid, per, bm) in geo.items():
+            assert grid[:2] == geo[1][0][:2] and per == geo[1][1]
+            assert grid[2] == -(-m // bm) and bm in (4, 8, 16, 64)
+        assert geo[4][0][0] * geo[4][0][1] >= H100_SMS or geo[4][0][1] == bsr.max_nnz
+
+
+@pytest.mark.parametrize("h,kvh", [(16, 16), (16, 8)])
+def test_prefill_grid_at_main_path_prompts(h, kvh):
+    """qwen's (16/16) and granite's (16/8) heads at a 47-token prompt:
+    at least 48 CTAs, one per 16 query rows of a KV head."""
+    grid = prefill_grid(1, 47, h, kvh)
+    assert grid[1] == kvh and grid[0] * grid[1] * grid[2] >= 48
+    assert grid[2] * PREFILL_ROWS >= 47 * (h // kvh) > (grid[2] - 1) * PREFILL_ROWS
