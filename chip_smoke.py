@@ -12,17 +12,23 @@ Phases, any failure ends the run with a non-zero exit code:
    models' weight shapes and an odd one, 128x128 and 32x32 blocks, an
    all-pruned column, every epilogue the models use; BSR planes: E
    1/3/32, M 1/8/47/200, granite's expert shapes and an odd one, a dead
-   and a fully dense plane; paged decode and prefill: page sizes 4/8/16,
-   GQA 16/16, 16/8, 8/2, 4/1, ragged lengths including 0, NaN in every
-   page no row owns, q_offset 0/ps/3ps; structure norms: qwen's and
-   granite's expert weights and an odd one, 128 and 32 tiles; BSR also a
-   fully dense 88-slot column and a 1000-slot column), the MoE router's
-   logits held to be the same for a token alone and in a batch
+   and a fully dense plane, and with row counts of 0, C and ragged ones,
+   one and two segments per plane, a live plane whose counts are all 0,
+   rows past the count held to epilogue(0); paged decode and prefill:
+   page sizes 4/8/16, GQA 16/16, 16/8, 8/2, 4/1, ragged lengths
+   including 0, NaN in every page no row owns, q_offset 0/ps/3ps, and
+   decode at an exact chunk boundary and past 8 chunks (1500 cached
+   positions) in all four (q, pool) dtype pairs; structure norms: qwen's
+   and granite's expert weights and an odd one, 128 and 32 tiles; BSR
+   also a fully dense 88-slot column and a 1000-slot column), the MoE
+   router's logits held to be the same for a token alone and in a batch
    (reported), and batch invariance in fp32 (gated): a BSR row is
    bit-identical alone and inside M 4/47/200 (the wide-column layouts
    here, qwen's knapsack-pruned layouts after its main path), a prefill
    position bit-identical in a full, a tail (q_offset 3 ps) and a
-   ragged-batch call;
+   ragged-batch call, a planes row bit-identical at M 1/8/47 and with
+   and without row counts, a decode row bit-identical alone, inside a
+   ragged batch of 5 and with a 4x wider page table;
 3. two main paths, each served through ``ServingEngine`` at full width
    from a seeded generator, knapsack-pruned at 0.75 with 128x128 blocks
    and BSR-packed, on the same traffic: qwen1.5-0.5b (24 layers, d_model
@@ -37,16 +43,20 @@ Phases, any failure ends the run with a non-zero exit code:
    counts are zeroed just before each run (a) and read just after it;
    every kernel of the path must have run, and each BSR kernel exactly
    once per weight per forward pass (granite: 3 planes launches per MoE
-   layer per decode tick and per prefill, so no loop over experts);
+   layer per decode tick and per prefill, so no loop over experts), and
+   paged decode once per layer per tick;
 4. one ``kernels`` JSON line with all five kernels: launches over the
    two runs (a), error against the plain version at the main paths'
    shapes (held to the phase-2 tolerances), the card's busy share over
    each run (a) from ``torch.profiler``, and the kernel's, the plain
    version's and one PyTorch library call's time at the main paths'
    shapes beside the least time the card could take (``bound_ms``), the
-   launch geometry of the two redesigned kernels, prefill at two longer
-   prompts (qwen's heads, S 512 and S 256 after 256 cached tokens), and
-   the timer's floor (a one-element add).
+   planes kernel with and without the engine's row counts, the launch
+   geometry (grid, cluster, shared memory) of the redesigned kernels and
+   their ``-Xptxas -v`` lines, prefill at two longer prompts (qwen's
+   heads, S 512 and S 256 after 256 cached tokens), decode at longer
+   contexts (qwen's heads, B 4, page sizes 8 and 16, cache_len 512 and
+   2048), and the timer's floor (a one-element add).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository beside it, the script exits non-zero and prints
@@ -54,6 +64,7 @@ no result.  Details go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -517,6 +528,189 @@ def check_planes(torch, dev) -> float:
     return worst
 
 
+# planes with row counts: (segments, C) and each plane's counts per segment
+# (0, C, ragged); plane 3 has live tiles but every count 0
+PLANE_COUNTS = {(1, 8): [[0], [8], [3], [0]], (1, 47): [[47], [1], [16], [0]],
+                (2, 15): [[0, 15], [15, 1], [7, 0], [0, 0]]}
+
+
+def check_planes_counts(torch, dev) -> float:
+    """The planes kernel with row counts against the plain version with
+    the same counts: counts of 0, C and ragged ones, one and two segments
+    per plane, a plane with live tiles whose counts are all 0, every
+    epilogue; and every row past its count equal to epilogue(0)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.block_sparse_matmul import (
+        bsr_planes_matmul_plain, live_rows)
+    worst = 0.0
+    i = 0
+    for (segs, c), per_plane in PLANE_COUNTS.items():
+        for (k, n) in ((1024, 512), (512, 1024)):
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.Generator(device=dev).manual_seed(8000 + i)
+                planes = random_planes(torch, g, dev, 4, k, n, 128, 128, dtype)
+                m = segs * c
+                counts = torch.tensor(per_plane, dtype=torch.int32, device=dev)
+                for spec in ("none", "silu+mult", "bias+gelu+mult+res"):
+                    i += 1
+                    x = torch.randn((4, m, k), generator=g, device=dev).to(dtype)
+                    epi = make_epilogue(torch, spec, m, n, dtype, g, dev)
+                    if epi is not None:
+                        epi = epi.map_operands(lambda a: torch.randn(
+                            (4, m, n), generator=g, device=dev).to(dtype))
+                    got = ops.bsr_planes_matmul(x, planes, epilogue=epi,
+                                                row_counts=counts)
+                    want = bsr_planes_matmul_plain(x, planes, epilogue=epi,
+                                                   row_counts=counts)
+                    zero = bsr_planes_matmul_plain(torch.zeros_like(x), planes,
+                                                   epilogue=epi)
+                    torch.cuda.synchronize()
+                    dead = ~live_rows(counts, m)
+                    err = rel_err(got, want)
+                    err0 = rel_err(got[dead], zero[dead])
+                    tol = TOL[dname(dtype)]
+                    ok = err <= tol and err0 <= tol
+                    REPORT["checks"].append(dict(
+                        kernel="bsr_planes_matmul", row_counts=per_plane,
+                        segments=segs, c=c, k=k, n=n, dtype=dname(dtype),
+                        epilogue=spec, rel_err=err, dead_rows_err=err0, ok=ok))
+                    if not ok:
+                        raise AssertionError(
+                            f"bsr_planes_matmul counts {per_plane} K={k} N={n} "
+                            f"{dname(dtype)} {spec}: error {err:.3g}, rows past "
+                            f"their count vs epilogue(0) {err0:.3g} > {tol}")
+                    worst = max(worst, err, err0)
+    log(f"  bsr_planes_matmul with row counts: {i} cases OK (counts 0, C, "
+        f"ragged; 1 and 2 segments; a live plane with all counts 0; rows past "
+        f"the count = epilogue(0)), worst normalized error {worst:.3g}")
+    return worst
+
+
+def check_planes_invariance(torch, dev) -> int:
+    """Gated: in fp32 a row of plane e is bit-identical at M 1, 8 and 47
+    (decode and prefill row tiles), and with and without row counts for
+    rows below the count, at granite's expert shapes."""
+    from repro_torch.kernels import Epilogue, ops
+    n_cases = 0
+    for (k, n) in ((1024, 512), (512, 1024)):
+        g = torch.Generator(device=dev).manual_seed(k)
+        planes = random_planes(torch, g, dev, 8, k, n, 128, 128, torch.float32)
+        x = torch.randn((8, 47, k), generator=g, device=dev)
+        mult = torch.randn((8, 47, n), generator=g, device=dev)
+        counts = torch.tensor([[c] for c in (47, 0, 5, 16, 17, 1, 33, 8)],
+                              dtype=torch.int32, device=dev)
+
+        def run(m, rc=None):
+            return ops.bsr_planes_matmul(
+                x[:, :m].contiguous(), planes, row_counts=rc,
+                epilogue=Epilogue(activation="silu",
+                                  multiplier=mult[:, :m].contiguous()))
+
+        full = run(47)
+        with_counts = run(47, counts)
+        same = {f"M {m}": bool(torch.equal(run(m), full[:, :m])) for m in (1, 8)}
+        same["counts"] = all(bool(torch.equal(with_counts[p, :int(c)],
+                                              full[p, :int(c)]))
+                             for p, c in enumerate(counts[:, 0].tolist()))
+        REPORT["checks"].append(dict(kernel="bsr_planes_matmul",
+                                     invariance=f"{k}x{n}", bit_identical=same,
+                                     ok=all(same.values())))
+        if not all(same.values()):
+            raise AssertionError(f"bsr_planes_matmul {k}x{n}: rows differ "
+                                 f"across M or counts (bit-identical: {same})")
+        n_cases += 1
+    return n_cases
+
+
+def check_decode_chunks(torch, dev) -> float:
+    """Paged decode over context chunks: cache_len 0, 1, an exact chunk
+    boundary, two chunks and more than 8 chunks (1500); page sizes 4, 8,
+    16; every GQA pair of phase 2; NaN in every slot no row owns; all four
+    (q, pool) dtype pairs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import (
+        decode_chunk, paged_attention_decode_plain)
+    worst = 0.0
+    i = 0
+    dh = 64
+    for ps in (4, 8, 16):
+        chunk = decode_chunk(ps, dh)
+        for h, kvh in ((16, 16), (16, 8), (8, 2), (4, 1)):
+            g = torch.Generator(device=dev).manual_seed(9000 + ps * 100 + h + kvh)
+            clen = torch.tensor([0, 1, chunk, 2 * chunk, 1500], dtype=torch.int32,
+                                device=dev)
+            mp = -(-1500 // ps) + 1
+            kp, vp, tbl = poisoned_pools(torch, g, dev, 5, kvh, dh, ps, mp, clen,
+                                         torch.float32)
+            q = torch.randn((5, h, dh), generator=g, device=dev)
+            kn = torch.randn((5, kvh, dh), generator=g, device=dev)
+            vn = torch.randn((5, kvh, dh), generator=g, device=dev)
+            for qd in (torch.float32, torch.bfloat16):
+                for pd in (torch.float32, torch.bfloat16):
+                    i += 1
+                    a = (q.to(qd), kn.to(qd), vn.to(qd), kp.to(pd), vp.to(pd),
+                         tbl, clen)
+                    got = ops.paged_attention_decode(*a)
+                    want = paged_attention_decode_plain(*a)
+                    torch.cuda.synchronize()
+                    err = rel_err(got, want)
+                    REPORT["checks"].append(dict(
+                        kernel="paged_attention_decode", ps=ps, h=h, kvh=kvh,
+                        chunk=chunk, cache_len=[int(v) for v in clen],
+                        dtype=dname(qd), pool_dtype=dname(pd), rel_err=err,
+                        ok=err <= ATTN_TOL))
+                    if err > ATTN_TOL:
+                        raise AssertionError(
+                            f"paged decode chunks ps={ps} H={h} K={kvh} "
+                            f"{dname(qd)}/{dname(pd)}: error {err:.3g} > {ATTN_TOL}")
+                    worst = max(worst, err)
+    log(f"  paged_attention_decode over chunks: {i} cases OK (cache_len 0, 1, "
+        f"a chunk boundary, 2 chunks, 1500; ps 4/8/16; 4 GQA pairs; 4 dtype "
+        f"pairs; NaN-poisoned pools), worst normalized error {worst:.3g}")
+    return worst
+
+
+def check_decode_invariance(torch, dev) -> int:
+    """Gated: in fp32 a decode row's output is bit-identical computed
+    alone (its own table), inside a ragged batch of 5 and with a table 4x
+    wider, at qwen's and granite's heads and page sizes 8 and 16."""
+    from repro_torch.kernels import ops
+    n = 0
+    dh = 64
+    lens = [61, 0, 1500, 7, 300]
+    for ps in (8, 16):
+        for h, kvh in ((16, 16), (16, 8)):
+            g = torch.Generator(device=dev).manual_seed(9500 + ps + kvh)
+            clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+            mp = -(-1500 // ps) + 1
+            kp, vp, tbl = poisoned_pools(torch, g, dev, 5, kvh, dh, ps, mp, clen,
+                                         torch.float32)
+            q = torch.randn((5, h, dh), generator=g, device=dev)
+            kn = torch.randn((5, kvh, dh), generator=g, device=dev)
+            vn = torch.randn((5, kvh, dh), generator=g, device=dev)
+            batch = ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen)
+            same = {}
+            for r in (0, 2, 4):
+                one = [t[r:r + 1].contiguous() for t in (q, kn, vn)]
+                own = tbl[r:r + 1, :max(-(-lens[r] // ps), 1)].contiguous()
+                wide = torch.zeros((1, 4 * mp), dtype=torch.int32, device=dev)
+                wide[0, :mp] = tbl[r]
+                alone = ops.paged_attention_decode(*one, kp, vp, own, clen[r:r + 1])
+                wider = ops.paged_attention_decode(*one, kp, vp, wide, clen[r:r + 1])
+                same[f"row {r} alone"] = bool(torch.equal(alone, batch[r:r + 1]))
+                same[f"row {r} wide table"] = bool(torch.equal(wider,
+                                                               batch[r:r + 1]))
+            REPORT["checks"].append(dict(kernel="paged_attention_decode",
+                                         invariance=f"ps {ps} H {h} K {kvh}",
+                                         bit_identical=same,
+                                         ok=all(same.values())))
+            if not all(same.values()):
+                raise AssertionError(f"paged decode ps={ps} H={h} K={kvh}: rows "
+                                     f"differ across calls {same}")
+            n += 1
+    return n
+
+
 def check_norms(torch, dev) -> float:
     from repro_torch.kernels import ops
     from repro_torch.kernels.structure_norms import structure_norms_plain
@@ -614,13 +808,15 @@ class Capture:
                                  epilogue.map_operands(clone))
             return orig["bsr_matmul"](x, bsr, epilogue=epilogue)
 
-        def bsr_planes_matmul(x, planes, *, epilogue=None):
+        def bsr_planes_matmul(x, planes, *, epilogue=None, row_counts=None):
             # the MoE layer runs after its layer's attention call
             key = (self.phase, tuple(planes.shape), epilogue_kind(epilogue))
             if key not in self.planes or x.numel() > self.planes[key][0].numel():
                 self.planes[key] = (clone(x), planes, None if epilogue is None
-                                    else epilogue.map_operands(clone))
-            return orig["bsr_planes_matmul"](x, planes, epilogue=epilogue)
+                                    else epilogue.map_operands(clone),
+                                    clone(row_counts))
+            return orig["bsr_planes_matmul"](x, planes, epilogue=epilogue,
+                                             row_counts=row_counts)
 
         def decode(q, k_new, v_new, k_pool, v_pool, page_table, cache_len):
             self.phase = "decode"
@@ -801,6 +997,13 @@ def main_path(torch, dev, gpu_line, arch: str, cf_a=None):
             raise AssertionError(
                 f"{arch} run (a): {name} launched {launches[name]} times, "
                 f"not {per} x {base.n_layers} layers x {passes} passes = {want}")
+    # paged attention: one launch per layer per decode tick / per prefill
+    for name, calls in (("paged_attention_decode", eng.decode_ticks),
+                        ("paged_attention_prefill", len(done))):
+        if launches[name] != base.n_layers * calls:
+            raise AssertionError(
+                f"{arch} run (a): {name} launched {launches[name]} times, "
+                f"not {base.n_layers} layers x {calls}")
     bad = serve.verify_streams(params, cfg_a, done, gen, device=dev)
     if bad:
         raise AssertionError(f"{arch} run (a): streams {bad} differ from solo "
@@ -912,50 +1115,81 @@ def time_bsr(torch, timer, path, cap):
 
 
 def time_planes(torch, timer, path, cap):
+    """Each captured planes call with the engine's row counts (the main
+    path) and without them (every capacity row computed, as the reference
+    does); the bound of each counts only what its rows need."""
     from repro_torch.core import bsr_to_dense
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.block_sparse_matmul import bsr_planes_matmul_plain
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.block_sparse_matmul import (
+        bsr_planes_grid, bsr_planes_matmul_plain)
+    smem = _build.library("bsr_planes_matmul").bsr_planes_smem_bytes
+    smem.restype = ctypes.c_longlong
+    dtype_code = {torch.float32: 0, torch.bfloat16: 1}
     rows = []
-    for (phase, shape, kind), (x, planes, epi) in sorted(cap.planes.items()):
+    for (phase, shape, kind), (x, planes, epi, counts) in sorted(cap.planes.items()):
         e, k, n = shape
         x3 = x.reshape(e, -1, k)              # the plain version takes (E, M, K)
         m = x3.shape[1]
         es = x.element_size()
         epi3 = None if epi is None else epi.map_operands(
             lambda a: a.reshape(e, -1, a.shape[-1]))
-        ms = timer(lambda: ops.bsr_planes_matmul(x, planes, epilogue=epi))
-        plain = timer(lambda: bsr_planes_matmul_plain(x3, planes, epilogue=epi3),
+        cnt = counts.reshape(e, -1)
+        ms = timer(lambda: ops.bsr_planes_matmul(x, planes, epilogue=epi,
+                                                 row_counts=counts))
+        ms_all = timer(lambda: ops.bsr_planes_matmul(x, planes, epilogue=epi))
+        plain = timer(lambda: bsr_planes_matmul_plain(x3, planes, epilogue=epi3,
+                                                      row_counts=cnt),
                       reps=10, device_only=False)
         dense = torch.stack([bsr_to_dense(p) for p in planes.planes])
         lib = timer(lambda: torch.bmm(x3, dense))
         err = held("bsr_planes_matmul",
-                   ops.bsr_planes_matmul(x, planes, epilogue=epi).reshape(e, m, n),
-                   bsr_planes_matmul_plain(x3, planes, epilogue=epi3),
-                   TOL[dname(x.dtype)])
+                   ops.bsr_planes_matmul(x, planes, epilogue=epi,
+                                         row_counts=counts).reshape(e, m, n),
+                   bsr_planes_matmul_plain(x3, planes, epilogue=epi3,
+                                           row_counts=cnt), TOL[dname(x.dtype)])
+        held("bsr_planes_matmul (no counts)",
+             ops.bsr_planes_matmul(x, planes, epilogue=epi).reshape(e, m, n),
+             bsr_planes_matmul_plain(x3, planes, epilogue=epi3),
+             TOL[dname(x.dtype)])
         bk, bn = planes.blocking.bk, planes.blocking.bn
-        z = planes.nnz_blocks
-        live = sum(live_elems(planes.flat_rows[p], planes.flat_cols[p],
-                              planes.plane_nnz[p], k, n, bk, bn)
-                   for p in range(e))
-        nbytes = (e * m * k * es + z * bk * bn * es + planes.indices.numel() * 8
-                  + e * m * n * es + epilogue_bytes(epi))
-        bnd, by = bound_ms(nbytes, 2.0 * m * live, dname(x.dtype))
+        live = [live_elems(planes.flat_rows[p], planes.flat_cols[p],
+                           planes.plane_nnz[p], k, n, bk, bn) for p in range(e)]
+        rows_live = [int(v) for v in cnt.sum(dim=1)]
+        fixed = planes.indices.numel() * 8 + e * m * n * es + epilogue_bytes(epi)
+
+        def bound(rows_of, tiles_of):
+            nbytes = (sum(rows_of) * k * es + fixed + sum(
+                planes.plane_nnz[p] for p in range(e) if tiles_of[p])
+                * bk * bn * es)
+            return bound_ms(nbytes, 2.0 * sum(r * v for r, v in zip(rows_of, live)),
+                            dname(x.dtype))
+        bnd, by = bound(rows_live, rows_live)
+        bnd_all, _ = bound([m] * e, [1] * e)
+        grid, _, bm = bsr_planes_grid(m, cnt.shape[1], planes, x.dtype)
         row = dict(name="bsr_planes_matmul", path=path, phase=phase, e=e, m=m,
-                   k=k, n=n, epilogue=kind, nnz_blocks=z,
-                   live_planes=sum(1 for v in planes.plane_nnz if v), ms=ms,
-                   plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+                   k=k, n=n, epilogue=kind, nnz_blocks=planes.nnz_blocks,
+                   live_planes=sum(1 for v in planes.plane_nnz if v),
+                   routed_planes=sum(1 for v in rows_live if v),
+                   live_rows=sum(rows_live), segments=cnt.shape[1],
+                   grid=list(grid), ctas=grid[0] * grid[1] * grid[2], bm=bm,
+                   smem_bytes=smem(dtype_code[x.dtype], bm), ms=ms,
+                   ms_no_counts=ms_all, plain_ms=plain, library_ms=lib,
+                   bound_ms=bnd, bound_ms_no_counts=bnd_all, bound_by=by,
                    max_abs_err=err)
         rows.append(row)
         report_row(row)
     return rows
 
 
-def time_decode(torch, timer, path, cap):
+def time_decode(torch, timer, path, inputs):
+    """One decode call: inputs (q, k_new, v_new, pools, page_table,
+    cache_len), against SDPA on the gathered K/V."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.paged_attention import paged_attention_decode_plain
-    dev = cap.decode[1][0].device
-    _, (q, kn, vn, kp, vp, tbl, clen) = cap.decode
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.paged_attention import (
+        decode_chunk, decode_grid, paged_attention_decode_plain)
+    q, kn, vn, kp, vp, tbl, clen = inputs
+    dev = q.device
     clen = clen.to(torch.int32)
     ms = timer(lambda: ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen))
     plain = timer(lambda: paged_attention_decode_plain(q, kn, vn, kp, vp, tbl, clen),
@@ -969,28 +1203,54 @@ def time_decode(torch, timer, path, cap):
     L = int(clen.max()) + 1
     pos = torch.arange(L, device=dev)
     pid = tbl.long()[:, (pos // ps).clamp(max=tbl.shape[1] - 1)]
-    kc = kp[pid, (pos % ps)[None]].clone()              # (B, L, K, dh)
-    vc = vp[pid, (pos % ps)[None]].clone()
+    kc = kp[pid, (pos % ps)[None]].float()              # (B, L, K, dh)
+    vc = vp[pid, (pos % ps)[None]].float()
     rows_b = torch.arange(b, device=dev)
     kc[rows_b, clen.long()] = kn.float()
     vc[rows_b, clen.long()] = vn.float()
     g = h // kvh
     kq = kc.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     vq = vc.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    del kc, vc
     mask = (pos[None, :] <= clen[:, None].long())[:, None, None, :]
     q4 = q.float()[:, :, None, :]
     lib = timer(lambda: F.scaled_dot_product_attention(q4, kq, vq, attn_mask=mask))
+    del kq, vq
     ctx = int(clen.long().sum())
     es_q, es_p = q.element_size(), kp.element_size()
     nbytes = (b * h * dh * es_q + 2 * b * kvh * dh * es_q + 2 * ctx * kvh * dh * es_p
               + 4 * (b + int(((clen + ps - 1) // ps).sum())) + b * h * dh * 4)
     bnd, by = bound_ms(nbytes, 4.0 * (ctx + b) * h * dh, "float32")
+    grid = decode_grid(b, kvh, ps, dh, tbl.shape[1])
+    smem = _build.library("paged_attention_decode").paged_decode_smem_bytes
+    smem.restype = ctypes.c_longlong
     row = dict(name="paged_attention_decode", path=path, b=b, h=h, kvh=kvh,
-               dh=dh, ps=ps, cache_len=[int(v) for v in clen], ms=ms,
-               plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+               dh=dh, ps=ps, dtype=dname(q.dtype), pool_dtype=dname(kp.dtype),
+               cache_len=[int(v) for v in clen], max_pages=tbl.shape[1],
+               chunk=decode_chunk(ps, dh), grid=list(grid),
+               cluster=grid[0], ctas=grid[0] * grid[1] * grid[2],
+               smem_bytes=smem(h // kvh, decode_chunk(ps, dh), dh, es_p, grid[0]),
+               ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
                max_abs_err=err)
     report_row(row)
     return [row]
+
+
+def long_contexts(torch, dev):
+    """Decode at contexts users reach beyond the smoke traffic: B 4 rows
+    of cache_len 512 and 2048 at qwen's heads (16/16, head_dim 64), page
+    sizes 8 and 16, fp32, NaN in every slot no row owns."""
+    out = []
+    for ps in (8, 16):
+        for ctx in (512, 2048):
+            g = torch.Generator(device=dev).manual_seed(ps + ctx)
+            clen = torch.full((4,), ctx, dtype=torch.int32, device=dev)
+            kp, vp, tbl = poisoned_pools(torch, g, dev, 4, 16, 64, ps,
+                                         ctx // ps + 1, clen, torch.float32)
+            q, kn, vn = (torch.randn((4, 16, 64), generator=g, device=dev)
+                         for _ in range(3))
+            out.append((q, kn, vn, kp, vp, tbl, clen))
+    return out
 
 
 def time_prefill(torch, timer, path, cap):
@@ -1104,6 +1364,7 @@ def timings(torch, dev, caps, launches):
     """Every kernel at the captured shapes of each path; returns the
     ``kernels`` line (one headline shape per kernel, launches summed
     over the paths' runs (a))."""
+    from repro_torch.kernels import _build
     timer = Timer(dev)
     one = torch.zeros(1, device=dev)
     floor = timer(lambda: one.add_(1))
@@ -1113,11 +1374,22 @@ def timings(torch, dev, caps, launches):
     for path, cap in caps.items():
         rows += time_bsr(torch, timer, path, cap)
         rows += time_planes(torch, timer, path, cap)
-        rows += time_decode(torch, timer, path, cap)
+        rows += time_decode(torch, timer, path, cap.decode[1])
         rows += time_prefill(torch, timer, path, cap)
     rows += time_prefill(torch, timer, "qwen1.5-0.5b, long prompts",
                          long_prompts(torch, dev))
+    for inputs in long_contexts(torch, dev):
+        rows += time_decode(torch, timer, "qwen1.5-0.5b heads, long contexts",
+                            inputs)
     rows.append(time_norms(torch, timer, dev))
+    # the redesigned kernels' registers, spills and static shared memory
+    logs = _build.build_logs()
+    REPORT["ptxas"] = {}
+    for name in ("bsr_planes_matmul", "paged_attention_decode"):
+        lines = [f"{entry}: {line}" for entry, line in ptxas_lines(logs[name])]
+        REPORT["ptxas"][name] = lines
+        for line in lines:
+            log(f"  ptxas {name}: {line}")
 
     def pick(name, **want):
         cands = [r for r in rows if r["name"] == name]
@@ -1186,7 +1458,9 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     check_bsr(torch, dev)
     check_planes(torch, dev)
+    check_planes_counts(torch, dev)
     check_attention(torch, dev)
+    check_decode_chunks(torch, dev)
     check_norms(torch, dev)
     check_router(torch, dev)
     wide = [(name, bsr_layout(torch, torch.Generator(device=dev).manual_seed(j),
@@ -1194,10 +1468,15 @@ def main() -> int:
             for j, (name, spec) in enumerate(BSR_WIDE_COLUMNS.items())]
     n_bsr = check_bsr_invariance(torch, dev, wide)
     n_pre = check_prefill_invariance(torch, dev)
+    n_pl = check_planes_invariance(torch, dev)
+    n_dec = check_decode_invariance(torch, dev)
     log(f"  batch invariance (fp32, gated): bsr_matmul rows bit-identical "
         f"alone and in M 4/47/200 on {n_bsr} layouts {[n for n, _ in wide]}; "
         f"paged prefill positions bit-identical in full, tail (q_offset 3 ps) "
-        f"and ragged-batch calls in {n_pre} cases")
+        f"and ragged-batch calls in {n_pre} cases; bsr_planes_matmul rows "
+        f"bit-identical at M 1/8/47 and with/without row counts on {n_pl} "
+        f"expert shapes; paged decode rows bit-identical alone, in a ragged "
+        f"batch of 5 and with a 4x wider table in {n_dec} cases")
     log(f"  phase 2 done at {time.perf_counter() - t_start:.1f}s")
 
     paths = {}

@@ -14,6 +14,22 @@ using namespace repro;
 
 namespace {
 
+template <typename T, int BM, bool kVec>
+__global__ void __launch_bounds__(bsr_split::kThreads)
+    bsr_split_kernel(const T* __restrict__ x, const T* __restrict__ blocks,
+                     const int* __restrict__ indices,
+                     const int* __restrict__ slots,
+                     const float* __restrict__ bias,
+                     const T* __restrict__ mult, const T* __restrict__ res,
+                     T* __restrict__ out, int M, int K, int N, int bk, int bn,
+                     int max_nnz, int stripes, int group_slots, int act) {
+  const int m0 = blockIdx.z * BM;
+  const int rows = min(BM, M - m0);
+  bsr_split::split_tile<T, BM, kVec>(x, blocks, indices, slots, bias, mult,
+                                     res, out, K, N, bk, bn, max_nnz, stripes,
+                                     group_slots, act, m0, rows, rows);
+}
+
 struct Args {
   const void *x, *blocks, *indices, *slots, *bias, *mult, *res;
   void* out;
@@ -24,60 +40,27 @@ struct Args {
 template <typename T, int BM, bool kVec>
 cudaError_t launch(const Args& a) {
   using namespace bsr_split;
-  auto kernel = bsr_split_kernel<T, BM, kVec>;
-  const size_t smem = Smem<T, BM>::bytes;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
   const int stripes = (a.bn + kStripe - 1) / kStripe;
-  const int row_tiles = (a.M + BM - 1) / BM;
-  if (row_tiles > 65535) return cudaErrorInvalidConfiguration;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.grid_n * stripes, a.groups, row_tiles);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = a.stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;  // a cluster = one output tile's groups
-  attr[0].val.clusterDim.y = a.groups;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(a.x),
-      static_cast<const T*>(a.blocks), static_cast<const int*>(a.indices),
-      static_cast<const int*>(a.slots), static_cast<const float*>(a.bias),
-      static_cast<const T*>(a.mult), static_cast<const T*>(a.res),
-      static_cast<T*>(a.out), a.M, a.K, a.N, a.bk, a.bn, a.max_nnz, stripes,
-      a.group_slots, a.act);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const dim3 grid(a.grid_n * stripes, a.groups, (a.M + BM - 1) / BM);
+  return launch_clustered(
+      bsr_split_kernel<T, BM, kVec>, Smem<T, BM>::bytes, grid, a.groups,
+      a.stream, static_cast<const T*>(a.x), static_cast<const T*>(a.blocks),
+      static_cast<const int*>(a.indices), static_cast<const int*>(a.slots),
+      static_cast<const float*>(a.bias), static_cast<const T*>(a.mult),
+      static_cast<const T*>(a.res), static_cast<T*>(a.out), a.M, a.K, a.N,
+      a.bk, a.bn, a.max_nnz, stripes, a.group_slots, a.act);
 }
 
-template <typename T, int BM>
-cudaError_t with_vec(const Args& a) {
-  const bool vec = aligned16(a.x) && aligned16(a.blocks) &&
-                   (a.K * sizeof(T)) % 16 == 0 &&
-                   (a.bk * sizeof(T)) % 16 == 0 &&
-                   (a.bn * sizeof(T)) % 16 == 0;
-  return vec ? launch<T, BM, true>(a) : launch<T, BM, false>(a);
-}
-
-// row tile bm as chosen by the wrapper: fp32 4/8/16/64, bf16 16/64
 template <typename T>
 cudaError_t dispatch(const Args& a, int bm) {
   using namespace bsr_split;
-  if (a.groups < 1 || a.groups > kMaxGroups || a.group_slots < 1 ||
-      a.group_slots > kMaxSlots ||
-      static_cast<long long>(a.groups) * a.group_slots < a.max_nnz)
+  if (!groups_ok(a.groups, a.group_slots, a.max_nnz))
     return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, float>::value) {
-    if (bm == 4) return with_vec<T, 4>(a);
-    if (bm == 8) return with_vec<T, 8>(a);
-  }
-  if (bm == 16) return with_vec<T, 16>(a);
-  if (bm == 64) return with_vec<T, 64>(a);
-  return cudaErrorInvalidValue;
+  const bool vec = vec_ok<T>(a.x, a.blocks, a.K, a.bk, a.bn);
+  return with_row_tile<T>(bm, [&](auto tile) {
+    constexpr int BM = decltype(tile)::value;
+    return vec ? launch<T, BM, true>(a) : launch<T, BM, false>(a);
+  });
 }
 
 }  // namespace

@@ -1,26 +1,28 @@
-// Kernel body of the 2-D block-sparse (BSR) matmul for Hopper (sm_90a):
+// Kernel body of the block-sparse (BSR) matmuls for Hopper (sm_90a):
 // y = act(x @ W_bsr + bias) * mult + residual for x (M, K) and a BSR
 // weight stored as the flat live-tile store blocks (nnz, bk, bn) plus the
 // per-column map indices/slots (grid_n, max_nnz) (-1 marks a padding
-// slot).  Entry point: bsr_matmul.cu.  (The planes kernel keeps its own
-// body, bsr_body.cuh.)
+// slot).  `split_tile` below computes one CTA's output tile; two kernels
+// call it: bsr_matmul.cu (one weight) and bsr_planes_matmul.cu (a stack
+// of expert planes, the plane on a grid axis, with per-segment row counts).
 //
 // Replaces: src/repro/kernels/block_sparse_matmul.py, bsr_matmul_kernel /
-// bsr_matmul_pallas (the TPU kernel of every packed projection).
+// bsr_matmul_pallas and bsr_planes_matmul_kernel /
+// bsr_planes_matmul_pallas.
 //
 // Bound on the H100: bytes.  At the main paths' shapes (decode M = 4
-// slots, prefill M = one prompt tail) every live weight tile is read once
-// per call and used for M rows, far below the ~295 operations per byte at
-// which the bf16 tensor cores would bound it (fp32: ~20 per byte).  A
-// decode call moves 0.5-3 MB, under a microsecond of HBM time, so the
-// kernel must put every SM to work at once and keep bytes in flight.
-// What the design does:
+// slots or an 8-row expert capacity buffer, prefill M = one prompt tail)
+// every live weight tile is read once per call and used for a few rows,
+// far below the ~295 operations per byte at which the bf16 tensor cores
+// would bound it (fp32: ~20 per byte).  A decode call moves 0.5-12 MB, a
+// few microseconds of HBM time at most, so the kernel must put every SM
+// to work at once and keep bytes in flight.  What the design does:
 //  * the grid is (BSR block column x 32-column stripe, slot group, row
-//    tile).  A column's slots are cut into `groups` consecutive groups of
-//    `group_slots` (the wrapper picks them from grid_n, max_nnz and the
-//    stripe count alone, so that a decode call puts a CTA on every SM);
-//    each CTA walks only its group's live slots, skipping padding before
-//    any load;
+//    tile [x plane]).  A column's slots are cut into `groups` consecutive
+//    groups of `group_slots` (the wrapper picks them from the layout
+//    alone: grid_n, max_nnz, the stripe count and the number of planes,
+//    so that a decode call puts a CTA on every SM); each CTA walks only
+//    its group's live slots, skipping padding before any load;
 //  * the groups of one output tile form a thread-block cluster (at most
 //    8): each CTA leaves its partial sum in shared memory, and after a
 //    cluster barrier the CTAs add the partials through distributed shared
@@ -32,8 +34,15 @@
 //    same ring);
 //  * 4 warps split each K chunk into quarters, so a decode CTA (BM 4 or 8
 //    rows) keeps all its threads busy; their partials are added through
-//    shared memory in warp order.  Row tiles follow M (the wrapper's
-//    bsr_row_tile): fp32 4, 8, 16 up to 48 rows, then 64; bf16 16, 64;
+//    shared memory in warp order.  The K chunk is fixed per kernel and
+//    dtype (fp32: 32 in the 2-D kernel, 64 in the planes kernel; bf16:
+//    64).  Row tiles follow the rows (the wrappers' bsr_row_tile /
+//    bsr_planes_row_tile): fp32 4, 8, 16 up to 48 rows, then 64; bf16 16,
+//    64;
+//  * rows of the tile at or past `live` are taken as zero rows of x: they
+//    are zero-filled, never loaded, and get epilogue(0).  A tile with no
+//    live row loads no weight tile at all: it writes epilogue(0) and exits
+//    (the planes kernel's row counts make most capacity rows such rows);
 //  * bf16 operands go through the tensor cores: mma.sync m16n8k16, bf16
 //    in, fp32 accumulate (one k16 step per warp and chunk).  fp32 operands
 //    stay on FFMA, never TF32;
@@ -47,16 +56,18 @@
 //       the group's live slots in slot order and, inside each, over the
 //       rows of every K chunk that fall in warp w's quarter, in K order
 // (bf16: the chain is one tensor-core step per k16 quarter).  The groups
-// and the quarters are fixed by (grid_n, max_nnz, bk, bn) and the slot
-// index, never by M, BM or the row tile; rows never mix.  A column with no
-// live slot writes epilogue(0).
+// and the quarters are fixed by the layout (grid_n, max_nnz, bk, bn, the
+// plane count), the kernel's K chunk and the slot index, never by M, BM,
+// the row tile or the row counts; rows never mix.  A row below its count therefore sums the
+// same with and without counts.  A column with no live slot, and a row
+// that is not live, writes epilogue(0).
 #pragma once
 
 #include <cooperative_groups.h>
 
 #include <type_traits>
 
-#include "bsr_body.cuh"  // activation codes and activate()
+#include "common.cuh"
 
 namespace repro {
 namespace bsr_split {
@@ -69,24 +80,62 @@ constexpr int kStripe = 32;      // output columns per CTA
 constexpr int kStages = 4;       // cp.async ring depth
 constexpr int kMaxGroups = 8;    // portable thread-block cluster size
 constexpr int kMaxSlots = 1024;  // slots of one group held in shared memory
+// split_tile's static shared memory: the slot list and its count
+constexpr size_t kStaticSmem = (2 * kMaxSlots + 4) * sizeof(int);
 
-// K chunk of one stage and shared-memory row strides (elements).  fp32: a
-// 32-deep chunk, 8 rows per warp.  bf16: a 64-deep chunk, one k16 mma step
-// per warp; rows padded by 16 bytes so the fragment loads miss no bank.
+// activation codes shared with the Python wrappers (ACT_CODES)
+enum Act : int { kNone = 0, kSilu = 1, kGelu = 2, kRelu = 3, kSigmoid = 4 };
+
+__device__ __forceinline__ float activate(float y, int act) {
+  switch (act) {
+    case kSilu:
+      return y / (1.f + expf(-y));
+    case kGelu: {  // jax.nn.gelu's default tanh approximation
+      const float c = 0.7978845608028654f;
+      return 0.5f * y * (1.f + tanhf(c * (y + 0.044715f * y * y * y)));
+    }
+    case kRelu:
+      return fmaxf(y, 0.f);
+    case kSigmoid:
+      return 1.f / (1.f + expf(-y));
+    default:
+      return y;
+  }
+}
+
+// fused epilogue on the fp32 sum: bias -> act -> mult -> residual
 template <typename T>
-struct Layout;
-template <>
-struct Layout<float> {
-  static constexpr int KC = 32, XLD = 32, WLD = kStripe;
-};
-template <>
-struct Layout<__nv_bfloat16> {
-  static constexpr int KC = 64, XLD = 64 + 8, WLD = kStripe + 8;
+__device__ __forceinline__ void finish(float y, int col, size_t o,
+                                       const float* __restrict__ bias,
+                                       const T* __restrict__ mult,
+                                       const T* __restrict__ res,
+                                       T* __restrict__ out, int act) {
+  if (bias != nullptr) y += bias[col];
+  y = activate(y, act);
+  if (mult != nullptr) y *= to_float(mult[o]);
+  if (res != nullptr) y += to_float(res[o]);
+  out[o] = from_float<T>(y);
+}
+
+// K chunk of one stage (KC) and shared-memory row strides (elements).
+// fp32: a 32-deep chunk by default, KC / 4 rows per warp.  bf16: a 64-deep
+// chunk, one k16 mma step per warp; rows padded by 16 bytes so the
+// fragment loads miss no bank.
+template <typename T>
+constexpr int kDefaultKC = std::is_same<T, float>::value ? 32 : 64;
+
+template <typename T, int KC_>
+struct Layout {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static_assert(kF32 ? KC_ % 32 == 0 : KC_ == 64, "K chunk per dtype");
+  static constexpr int KC = KC_;
+  static constexpr int XLD = kF32 ? KC : KC + 8;
+  static constexpr int WLD = kF32 ? kStripe : kStripe + 8;
 };
 
-template <typename T, int BM>
+template <typename T, int BM, int KC = kDefaultKC<T>>
 struct Smem {
-  using L = Layout<T>;
+  using L = Layout<T, KC>;
   static constexpr size_t w_elems = L::KC * L::WLD;
   static constexpr size_t x_elems = BM * L::XLD;
   static constexpr size_t stage = (w_elems + x_elems) * sizeof(T);
@@ -113,20 +162,27 @@ __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// One CTA: output tile (rows m0.., stripe c0.. of block column j), slot
-// group blockIdx.y of gridDim.y.  kVec: x, blocks, K, bk and bn are
-// 16-byte aligned, so every stage is copied with cp.async.
-template <typename T, int BM, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    bsr_split_kernel(const T* __restrict__ x, const T* __restrict__ blocks,
-                     const int* __restrict__ indices,
-                     const int* __restrict__ slots,
-                     const float* __restrict__ bias,
-                     const T* __restrict__ mult, const T* __restrict__ res,
-                     T* __restrict__ out, int M, int K, int N, int bk, int bn,
-                     int max_nnz, int stripes, int group_slots, int act) {
-  using L = Layout<T>;
-  using S = Smem<T, BM>;
+// One CTA: output rows [m0, m0 + rows) of x (., K) / out (., N) (the
+// pointers of one weight or plane), stripe c0.. of block column j
+// (blockIdx.x), slot group blockIdx.y of gridDim.y (= the rank in the
+// cluster).  Rows r < live are read from x; rows live <= r < rows are
+// zero rows.  Every rank of a cluster gets the same (m0, rows, live).
+// kVec: x, blocks, K, bk and bn are 16-byte aligned, so every stage is
+// copied with cp.async.  kDeadTiles: a tile may have no live row (the
+// planes kernel's row counts); the 2-D kernel, whose every tile is live,
+// compiles the check out (with it, the fp32 BM 16 instance spilled
+// registers and ran slower).
+template <typename T, int BM, bool kVec, int KC_ = kDefaultKC<T>,
+          bool kDeadTiles = false>
+__device__ __forceinline__ void split_tile(
+    const T* __restrict__ x, const T* __restrict__ blocks,
+    const int* __restrict__ indices, const int* __restrict__ slots,
+    const float* __restrict__ bias, const T* __restrict__ mult,
+    const T* __restrict__ res, T* __restrict__ out, int K, int N, int bk,
+    int bn, int max_nnz, int stripes, int group_slots, int act, int m0,
+    int rows, int live) {
+  using L = Layout<T, KC_>;
+  using S = Smem<T, BM, KC_>;
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int KC = L::KC, XLD = L::XLD, WLD = L::WLD;
   static_assert(kF32 || BM % 16 == 0, "bf16 row tiles are mma m16 tiles");
@@ -139,16 +195,15 @@ __global__ void __launch_bounds__(kThreads)
   const int j = blockIdx.x / stripes;               // BSR block column
   const int c0 = (blockIdx.x % stripes) * kStripe;  // stripe inside it
   const int grp = blockIdx.y, n_grp = gridDim.y;    // = rank in the cluster
-  const int m0 = blockIdx.z * BM;
   constexpr int kTile = BM * kStripe;
 
   // this rank's epilogue operands go to L2 while the slots and weights
   // load, so the epilogue waits on no device-memory round trip
   for (int e = grp + n_grp * tid; e < kTile; e += n_grp * kThreads) {
-    const int row = m0 + e / kStripe, lc = c0 + e % kStripe;
+    const int r = e / kStripe, lc = c0 + e % kStripe;
     const int col = j * bn + lc;
-    if (row >= M || lc >= bn || col >= N) continue;
-    const size_t o = static_cast<size_t>(row) * N + col;
+    if (r >= rows || lc >= bn || col >= N) continue;
+    const size_t o = static_cast<size_t>(m0 + r) * N + col;
     if (mult != nullptr) prefetch_l2(mult + o);
     if (res != nullptr) prefetch_l2(res + o);
   }
@@ -161,17 +216,30 @@ __global__ void __launch_bounds__(kThreads)
       const int s = s0 + lane;
       const size_t o = static_cast<size_t>(j) * max_nnz + s;
       const int kb = s < s_end ? indices[o] : -1;
-      const unsigned live = __ballot_sync(0xffffffffu, kb >= 0);
+      const unsigned lv = __ballot_sync(0xffffffffu, kb >= 0);
       if (kb >= 0) {
-        const int at = n + __popc(live & ((1u << lane) - 1u));
+        const int at = n + __popc(lv & ((1u << lane) - 1u));
         s_kb[at] = kb;
         s_slot[at] = slots[o];
       }
-      n += __popc(live);
+      n += __popc(lv);
     }
     if (lane == 0) s_live = n;
   }
   __syncthreads();
+
+  // no live row: epilogue(0), and no weight tile is read.  (The slot map
+  // above is read anyway: its load overlaps the caller's row-count load.)
+  if (kDeadTiles && live <= 0) {
+    for (int e = grp + n_grp * tid; e < kTile; e += n_grp * kThreads) {
+      const int r = e / kStripe, lc = c0 + e % kStripe;
+      const int col = j * bn + lc;
+      if (r >= rows || lc >= bn || col >= N) continue;
+      finish(0.f, col, static_cast<size_t>(m0 + r) * N + col, bias, mult, res,
+             out, act);
+    }
+    return;
+  }
   const int chunks = (bk + KC - 1) / KC;
   const int steps = s_live * chunks;
 
@@ -179,7 +247,7 @@ __global__ void __launch_bounds__(kThreads)
   auto x_buf = [&](int st) { return w_buf(st) + S::w_elems; };
 
   // stage step t (live slot t / chunks, K chunk t % chunks); masked
-  // edges are written as zeros and never read
+  // edges and rows that are not live are written as zeros and never read
   auto issue = [&](int t) {
     const int li = t / chunks, kc = (t % chunks) * KC;
     const int kb = s_kb[li];
@@ -198,10 +266,11 @@ __global__ void __launch_bounds__(kThreads)
       }
       for (int e = tid; e < BM * XC; e += kThreads) {
         const int r = e / XC, cc = (e % XC) * E;
-        const int row = m0 + r, kk = kc + cc, col = kb * bk + kk;
-        const bool ok = row < M && kk < bk && col < K;
+        const int kk = kc + cc, col = kb * bk + kk;
+        const bool ok = r < live && kk < bk && col < K;
         cp_async16(xs + r * XLD + cc,
-                   ok ? x + static_cast<size_t>(row) * K + col : x, ok ? 16 : 0);
+                   ok ? x + static_cast<size_t>(m0 + r) * K + col : x,
+                   ok ? 16 : 0);
       }
     } else {
       for (int e = tid; e < KC * kStripe; e += kThreads) {
@@ -213,9 +282,9 @@ __global__ void __launch_bounds__(kThreads)
       }
       for (int e = tid; e < BM * KC; e += kThreads) {
         const int r = e / KC, cc = e % KC;
-        const int row = m0 + r, kk = kc + cc, col = kb * bk + kk;
-        xs[r * XLD + cc] = (row < M && kk < bk && col < K)
-                               ? x[static_cast<size_t>(row) * K + col]
+        const int kk = kc + cc, col = kb * bk + kk;
+        xs[r * XLD + cc] = (r < live && kk < bk && col < K)
+                               ? x[static_cast<size_t>(m0 + r) * K + col]
                                : from_float<T>(0.f);
       }
     }
@@ -229,7 +298,7 @@ __global__ void __launch_bounds__(kThreads)
 
   auto compute = [&](int st) {
     if constexpr (kF32) {
-      constexpr int KW = KC / kWarps;  // 8 rows of the chunk per warp
+      constexpr int KW = KC / kWarps;  // rows of the chunk per warp
       const float* ws = w_buf(st) + warp * KW * WLD + lane;
       const float* xs = x_buf(st) + warp * KW;
       float wv[KW];
@@ -237,17 +306,15 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < KW; ++i) wv[i] = ws[i * WLD];
 #pragma unroll
       for (int r = 0; r < BM; ++r) {
-        const float4 a = *reinterpret_cast<const float4*>(xs + r * XLD);
-        const float4 c = *reinterpret_cast<const float4*>(xs + r * XLD + 4);
         float s = acc[r];
-        s = fmaf(a.x, wv[0], s);
-        s = fmaf(a.y, wv[1], s);
-        s = fmaf(a.z, wv[2], s);
-        s = fmaf(a.w, wv[3], s);
-        s = fmaf(c.x, wv[4], s);
-        s = fmaf(c.y, wv[5], s);
-        s = fmaf(c.z, wv[6], s);
-        s = fmaf(c.w, wv[7], s);
+#pragma unroll
+        for (int i = 0; i < KW; i += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(xs + r * XLD + i);
+          s = fmaf(a.x, wv[i], s);
+          s = fmaf(a.y, wv[i + 1], s);
+          s = fmaf(a.z, wv[i + 2], s);
+          s = fmaf(a.w, wv[i + 3], s);
+        }
         acc[r] = s;
       }
     } else {
@@ -326,8 +393,8 @@ __global__ void __launch_bounds__(kThreads)
   cluster.sync();
   for (int e = grp + n_grp * tid; e < kTile; e += n_grp * kThreads) {
     const int r = e / kStripe, lc = c0 + e % kStripe;
-    const int row = m0 + r, col = j * bn + lc;
-    if (row >= M || lc >= bn || col >= N) continue;
+    const int col = j * bn + lc;
+    if (r >= rows || lc >= bn || col >= N) continue;
     float v[kMaxGroups];  // every rank's partial in flight at once
 #pragma unroll
     for (int g = 0; g < kMaxGroups; ++g)
@@ -336,15 +403,63 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int g = 1; g < kMaxGroups; ++g)
       if (g < n_grp) y += v[g];
-    // fused epilogue on the fp32 sum: bias -> act -> mult -> residual
-    const size_t o = static_cast<size_t>(row) * N + col;
-    if (bias != nullptr) y += bias[col];
-    y = bsr::activate(y, act);
-    if (mult != nullptr) y *= to_float(mult[o]);
-    if (res != nullptr) y += to_float(res[o]);
-    out[o] = from_float<T>(y);
+    finish(y, col, static_cast<size_t>(m0 + r) * N + col, bias, mult, res, out,
+           act);
   }
   cluster.sync();  // peers' partials stay alive until every rank has read
+}
+
+// Launch `kernel` on grid (x, groups, z) with one cluster per output
+// tile over its slot groups (1, groups, 1).
+template <typename Kernel, typename... Args>
+cudaError_t launch_clustered(Kernel kernel, size_t smem, dim3 grid, int groups,
+                             cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem(kernel, smem, kStaticSmem);
+  if (err != cudaSuccess) return err;
+  if (grid.z > 65535 || groups < 1 || groups > kMaxGroups)
+    return cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = groups;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// the operand layout lets every stage go through cp.async
+template <typename T>
+inline bool vec_ok(const void* x, const void* blocks, int K, int bk, int bn) {
+  return aligned16(x) && aligned16(blocks) && (K * sizeof(T)) % 16 == 0 &&
+         (bk * sizeof(T)) % 16 == 0 && (bn * sizeof(T)) % 16 == 0;
+}
+
+// calls f(integral_constant<int, BM>) for the row tile bm chosen by the
+// wrapper: fp32 4/8/16/64, bf16 16/64
+template <typename T, typename F>
+cudaError_t with_row_tile(int bm, F&& f) {
+  using std::integral_constant;
+  if constexpr (std::is_same<T, float>::value) {
+    if (bm == 4) return f(integral_constant<int, 4>());
+    if (bm == 8) return f(integral_constant<int, 8>());
+  }
+  if (bm == 16) return f(integral_constant<int, 16>());
+  if (bm == 64) return f(integral_constant<int, 64>());
+  return cudaErrorInvalidValue;
+}
+
+inline bool groups_ok(int groups, int group_slots, int max_nnz) {
+  return groups >= 1 && groups <= kMaxGroups && group_slots >= 1 &&
+         group_slots <= kMaxSlots &&
+         static_cast<long long>(groups) * group_slots >= max_nnz;
 }
 
 }  // namespace bsr_split

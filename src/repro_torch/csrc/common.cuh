@@ -74,10 +74,12 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// Dynamic shared memory above the 48 KB default needs an opt-in per kernel.
+// Shared memory above the 48 KB default (dynamic `bytes` plus the kernel's
+// `static_bytes`) needs an opt-in per kernel.
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes,
+                              size_t static_bytes = 0) {
+  if (bytes + static_bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));

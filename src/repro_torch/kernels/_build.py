@@ -39,7 +39,7 @@ SOURCES: Dict[str, str] = {
     "bsr_planes_matmul": "bsr_planes_matmul.cu",
     "structure_norms": "structure_norms.cu",
 }
-HEADERS = ("common.cuh", "bsr_body.cuh", "bsr_split.cuh")
+HEADERS = ("common.cuh", "bsr_split.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -60,10 +60,14 @@ def bsr_matmul(x: torch.Tensor, bsr: BSRWeight, *,
 
 
 def bsr_planes_matmul(x: torch.Tensor, planes: BSRPlanes, *,
-                      epilogue: Optional[Epilogue] = None) -> torch.Tensor:
+                      epilogue: Optional[Epilogue] = None,
+                      row_counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y[e] = epilogue(x[e] @ W_bsr[e]) for x (E, ..., K), every plane in
     one call; multiplier/residual are shaped (E, ..., N) like the output,
-    the bias (N,) is shared by the planes."""
+    the bias (N,) is shared by the planes.  ``row_counts`` (E, S): the
+    rows of a plane, flattened, are S equal segments whose rows at or past
+    the segment's count are taken as zero rows (see
+    ``block_sparse_matmul``); None: every row is live."""
     e = x.shape[0]
     lead = x.shape[1:-1]
     x3 = x.reshape(e, -1, x.shape[-1])
@@ -72,9 +76,11 @@ def bsr_planes_matmul(x: torch.Tensor, planes: BSRPlanes, *,
     if _on_card(x3):
         if epi is not None:
             epi = epi.map_operands(lambda a: a.contiguous())
-        y = bsr_planes_matmul_cuda(x3.contiguous(), planes, epilogue=epi)
+        y = bsr_planes_matmul_cuda(x3.contiguous(), planes, epilogue=epi,
+                                   row_counts=row_counts)
     else:
-        y = bsr_planes_matmul_plain(x3, planes, epilogue=epi)
+        y = bsr_planes_matmul_plain(x3, planes, epilogue=epi,
+                                    row_counts=row_counts)
     return y.reshape(e, *lead, planes.shape[-1])
 
 

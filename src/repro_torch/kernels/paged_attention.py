@@ -11,6 +11,12 @@ a logical view; masked positions get the finite ``NEG_INF`` score and a
 zeroed V, so NaN in unallocated pages never leaks through ``0 * NaN``.
 
 * ``*_cuda`` launch ``csrc/paged_decode.cu`` / ``csrc/paged_prefill.cu``.
+  The decode kernel cuts a row's context into chunks of
+  ``decode_chunk(ps, dh)`` positions; chunk ``c`` belongs to virtual rank
+  ``c % 8``, and the seed and the 8 virtual ranks' states are merged in
+  rank order in the same launch through a thread-block cluster of
+  ``decode_grid(...)[0]`` CTAs per (row, KV head).  A row's result
+  depends on its own length and pages only, not on B or the table width.
 * ``*_plain`` follow the reference's page-segment walks
   (``paged_attention.py:76,258``): the same recurrence, ``pages_per_step``
   pages at a time.
@@ -31,6 +37,8 @@ __all__ = [
     "paged_attention_prefill_plain",
     "paged_attention_prefill_cuda",
     "prefill_grid",
+    "decode_chunk",
+    "decode_grid",
 ]
 
 NEG_INF = -1e30  # finite mask sentinel (matches models/attention.py)
@@ -39,6 +47,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # head dims it is built for
 PREFILL_ROWS = 16
 PREFILL_HEAD_DIMS = (64, 128)
+# csrc/paged_decode.cu: the head dims it is built for, positions a chunk
+# aims at, and the virtual ranks (= the largest cluster) chunks cycle over
+DECODE_HEAD_DIMS = (64, 128)
+DECODE_CHUNK = 32
+DECODE_RANKS = 8
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -49,6 +62,26 @@ def prefill_grid(b: int, s: int, h: int, kvh: int):
     """The prefill kernel's grid: one CTA per (row, KV head, tile of
     ``PREFILL_ROWS`` query rows of the GQA group)."""
     return b, kvh, _cdiv(s * (h // kvh), PREFILL_ROWS)
+
+
+def decode_chunk(ps: int, dh: int) -> int:
+    """Positions per decode chunk: the smallest multiple of the page size
+    ``ps`` that holds ``DECODE_CHUNK`` positions (32 at ps 4, 8, 16; ps
+    itself for pages past 32).  Fixed by (ps, dh) alone; the kernel's
+    shared memory holds two chunks of K and V."""
+    if dh not in DECODE_HEAD_DIMS:
+        raise ValueError(f"paged decode: head_dim {dh} not one of "
+                         f"{DECODE_HEAD_DIMS}")
+    return ps * _cdiv(DECODE_CHUNK, ps)
+
+
+def decode_grid(b: int, kvh: int, ps: int, dh: int, max_pages: int):
+    """The decode kernel's grid (R, KV heads, rows): the R CTAs of a
+    (row, KV head) are one cluster, R = min(8, chunks of the table), from
+    the table width and not from the lengths (no host sync).  R decides
+    only which CTA computes a virtual rank, never the arithmetic."""
+    table_chunks = _cdiv(max_pages * ps, decode_chunk(ps, dh))
+    return min(DECODE_RANKS, max(1, table_chunks)), kvh, b
 
 
 def _rows(v: torch.Tensor, b: int) -> torch.Tensor:
@@ -145,9 +178,10 @@ def _check_common(name, q, k_pool, v_pool, page_table, lengths, kvh, dh):
 
 def paged_attention_decode_cuda(q, k_new, v_new, k_pool, v_pool, page_table,
                                 cache_len):
-    """Launch the Hopper decode kernel.  q (B, H, dh), k_new/v_new
+    """Launch the Hopper decode kernel, once.  q (B, H, dh), k_new/v_new
     (B, K, dh) in q's dtype, pools (P, ps, K, dh), page_table
-    (B, max_pages) int32, cache_len (B,) int32.  (B, H, dh) fp32."""
+    (B, max_pages) int32, cache_len (B,) int32; dh 64 or 128.
+    (B, H, dh) fp32."""
     name = "paged_attention_decode"
     b, h, dh = q.shape
     kvh = k_new.shape[1]
@@ -160,18 +194,21 @@ def paged_attention_decode_cuda(q, k_new, v_new, k_pool, v_pool, page_table,
     if page_table.shape[0] != b or cache_len.shape != (b,):
         raise ValueError(f"{name}: page_table {tuple(page_table.shape)} / "
                          f"cache_len {tuple(cache_len.shape)} vs B={b}")
+    ps, max_pages = k_pool.shape[1], page_table.shape[1]
+    chunk = decode_chunk(ps, dh)
+    ranks = decode_grid(b, kvh, ps, dh, max_pages)[0]
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
     if b == 0:
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _launcher(name, "paged_decode_launch", 8, 6)(
+        err = _launcher(name, "paged_decode_launch", 8, 8)(
             _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pool.dtype],
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
             cache_len.data_ptr(), out.data_ptr(),
-            b, h, kvh, dh, k_pool.shape[1], page_table.shape[1],
+            b, h, kvh, dh, ps, max_pages, chunk, ranks,
             1.0 / math.sqrt(dh), stream)
     _build.check(name, err)
     _build.launch_counts[name] += 1

@@ -65,20 +65,29 @@ def matmul(x: torch.Tensor, w, *, accum=torch.float32, epilogue=None) -> torch.T
 
 
 def expert_matmul(h: torch.Tensor, w, *, accum=torch.float32,
-                  epilogue=None) -> torch.Tensor:
+                  epilogue=None, row_counts=None) -> torch.Tensor:
     """Batched expert matmul (g, E, C, d) @ (E, d, f) -> (g, E, C, f) in
     ``accum`` (reference ``layers.py:90``).  A ``BSRPlanes`` leaf makes ONE
     ``ops.bsr_planes_matmul`` call over the whole stack: E moves to the
     front and the operands are made contiguous (the kernel's output is
     ``h.dtype``, and its multiplier/residual must be too — a multiplier
     that is itself such an output widened to fp32 narrows back exactly).
-    A dense leaf is an fp32 einsum followed by the same epilogue."""
+    A dense leaf is an fp32 einsum followed by the same epilogue.
+
+    ``row_counts`` (g, E) int32: rows ``c >= row_counts[g, e]`` of segment
+    (g, e) are taken as zero rows of h (the planes kernel skips them and
+    writes ``epilogue(0)`` there); None: every row is live."""
     if isinstance(w, BSRPlanes):
         he = h.transpose(0, 1).contiguous()                   # (E, g, C, d)
         epi = None if epilogue is None else epilogue.map_operands(
             lambda a: a.transpose(0, 1).to(h.dtype).contiguous())
-        y = ops.bsr_planes_matmul(he, w, epilogue=epi)
+        counts = None if row_counts is None else row_counts.T.contiguous()
+        y = ops.bsr_planes_matmul(he, w, epilogue=epi, row_counts=counts)
         return y.transpose(0, 1).to(accum)                    # (g, E, C, f)
+    if row_counts is not None:
+        live = torch.arange(h.shape[2], device=h.device) < row_counts[..., None]
+        h = torch.where(live[..., None], h,
+                        torch.zeros((), dtype=h.dtype, device=h.device))
     y = torch.einsum("gecd,edf->gecf", h.to(torch.float32),
                      w.to(torch.float32)).to(accum)
     return apply_epilogue(y, epilogue)

@@ -14,6 +14,15 @@ Semantics are the reference's, step for step:
 * the expert FFN is ``layers.expert_matmul`` on the (g, E, C, d) buffer
   (one planes-kernel launch per matmul on ``BSRPlanes`` leaves), with
   ``act(gate) * up`` fused into the gate matmul's epilogue;
+* the dispatch's row counts ride along: ``min(tokens routed to e, cap)``
+  rows of segment (g, e) hold a token and the rest of the buffer is zero
+  rows, so each expert matmul gets the (g, E) int32 counts
+  (``expert_row_counts``, computed on the device from the ``starts`` the
+  sort already has, no host sync) and the planes kernel loads no weight
+  tile for rows past them, nor for an expert no token was routed to.
+  Those rows are zero in the buffer, and the down matmul's input there is
+  ``act(0) * 0 = 0``, so the output is bit-identical with and without the
+  counts;
 * the Switch aux loss is ``E * sum_e(mean prob_e * top-1 fraction_e)``.
 
 What differs, for the card:
@@ -42,7 +51,8 @@ import torch
 from repro_torch.kernels.epilogue import Epilogue
 from .layers import expert_matmul, truncated_normal
 
-__all__ = ["moe_init", "moe_apply", "moe_decode", "router_logits"]
+__all__ = ["moe_init", "moe_apply", "moe_decode", "router_logits",
+           "expert_row_counts"]
 
 
 def moe_init(d_model: int, d_ff: int, num_experts: int, *, generator, device,
@@ -69,6 +79,17 @@ def router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     products summed over the contiguous last dim, one token at a time."""
     w_t = w.to(torch.float32).T.contiguous()                    # (E, d)
     return (x.to(torch.float32)[..., None, :] * w_t).sum(dim=-1)
+
+
+def expert_row_counts(starts: torch.Tensor, n_slots: int,
+                      cap: int) -> torch.Tensor:
+    """(g, E) int32 kept rows of every (group, expert) segment of the
+    capacity buffer, ``min(tokens routed to e, cap)``, from the dispatch's
+    (g, E) ``starts`` (first sorted slot of each expert) and the ``n_slots
+    = n * k`` slots of a group."""
+    ends = torch.cat([starts[:, 1:],
+                      torch.full_like(starts[:, :1], n_slots)], dim=1)
+    return torch.clamp(ends - starts, max=cap).to(torch.int32)
 
 
 def moe_apply(
@@ -125,16 +146,20 @@ def moe_apply(
     buffer = buf.reshape(g, e_n, cap + 1, d)[:, :, :cap]        # (g, E, C, d)
 
     # --- expert compute (BSRPlanes: one planes-kernel launch each) -------
+    counts = expert_row_counts(starts, n * k, cap)
     if "experts_gate" in p:
-        up = expert_matmul(buffer, p["experts_up"])
+        up = expert_matmul(buffer, p["experts_up"], row_counts=counts)
         h = expert_matmul(buffer, p["experts_gate"],
                           epilogue=Epilogue(activation=activation,
-                                            multiplier=up))
+                                            multiplier=up),
+                          row_counts=counts)
     else:
         h = expert_matmul(buffer, p["experts_up"],
-                          epilogue=Epilogue(activation=activation))
+                          epilogue=Epilogue(activation=activation),
+                          row_counts=counts)
     h = h.to(x.dtype)
-    out_e = expert_matmul(h, p["experts_down"]).to(x.dtype)      # (g, E, C, d)
+    out_e = expert_matmul(h, p["experts_down"],
+                          row_counts=counts).to(x.dtype)         # (g, E, C, d)
 
     # --- combine ------------------------------------------------------------
     back = out_e.reshape(g, e_n * cap, d)
@@ -156,7 +181,8 @@ def moe_decode(p: Dict, x: torch.Tensor, *, num_experts: int, top_k: int,
                capacity_factor: float = 2.0,
                activation: str = "silu") -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode path: the same dispatch over one group of the B tokens, at
-    a generous capacity factor (token counts are tiny at decode)."""
+    a generous capacity factor (token counts are tiny at decode: 4 tokens
+    x top-8 fill 32 of granite's 32 x 8 capacity rows)."""
     return moe_apply(p, x, num_experts=num_experts, top_k=top_k,
                      capacity_factor=capacity_factor, groups=1,
                      activation=activation)

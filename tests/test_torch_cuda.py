@@ -245,3 +245,142 @@ def test_paged_prefill_head_dim_128(card, dtype):
     got = ops.paged_attention_prefill(q, kp, vp, tbl, lens_t)
     want = paged_attention_prefill_plain(q, kp, vp, tbl, lens_t)
     assert torch.isfinite(got).all() and _rel_err(got, want) <= 2e-5
+
+
+def _planes(card, g, e, k, n, bk, bn, dtype, dead=()):
+    """A BSRPlanes stack of E random planes about 40 % live; planes in
+    ``dead`` have no live tile."""
+    planes = []
+    for p in range(e):
+        w = torch.randn((k, n), generator=g, device=card).to(dtype)
+        alive = torch.rand((-(-k // bk), -(-n // bn)), generator=g,
+                           device=card) < (0.0 if p in dead else 0.4)
+        mask = alive.repeat_interleave(bk, 0).repeat_interleave(bn, 1)[:k, :n]
+        planes.append(pack_bsr(w, BlockingSpec(bk, bn), mask=mask))
+    return BSRPlanes.from_planes(tuple(planes), shape=(e, k, n))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("segs,c", [(1, 8), (1, 47), (2, 15)])
+def test_bsr_planes_row_counts_match_plain(card, segs, c, dtype, tol):
+    """Counts of 0, C and ragged ones, one or two segments per plane, a
+    plane with live tiles whose counts are all 0: the kernel with counts
+    matches the plain version with counts, and every row past its count
+    is epilogue(0) (here silu(bias) * mult + res)."""
+    g = torch.Generator(device=card).manual_seed(17 * segs + c)
+    e, k, n = 4, 1024, 512
+    stack = _planes(card, g, e, k, n, 128, 128, dtype, dead=(3,))
+    m = segs * c
+    counts = torch.tensor([[0, c], [c, 1], [c // 2, 0], [3, c]][:e],
+                          dtype=torch.int32, device=card)[:, :segs].contiguous()
+    x = torch.randn((e, m, k), generator=g, device=card).to(dtype)
+    epi = Epilogue(bias=torch.randn(n, generator=g, device=card),
+                   activation="silu",
+                   multiplier=torch.randn((e, m, n), generator=g, device=card).to(dtype),
+                   residual=torch.randn((e, m, n), generator=g, device=card).to(dtype))
+    reset_launch_counts()
+    got = ops.bsr_planes_matmul(x, stack, epilogue=epi, row_counts=counts)
+    torch.cuda.synchronize()
+    assert launch_counts["bsr_planes_matmul"] == 1
+    want = bsr_planes_matmul_plain(x, stack, epilogue=epi, row_counts=counts)
+    assert _rel_err(got, want) <= tol
+    zero = (torch.nn.functional.silu(epi.bias)[None, None] * epi.multiplier.float()
+            + epi.residual.float())
+    live = torch.arange(c, device=card)[None, None] < counts[..., None]
+    dead = ~live.reshape(e, m)
+    assert _rel_err(got[dead], zero[dead]) <= tol
+
+
+@pytest.mark.parametrize("k,n", [(1024, 512), (512, 1024)])
+def test_bsr_planes_rows_bit_identical(card, k, n):
+    """fp32: a row of plane e is the same bit for bit at M 1, 8 and 47,
+    and with and without counts for rows below the count."""
+    g = torch.Generator(device=card).manual_seed(k)
+    e = 8
+    stack = _planes(card, g, e, k, n, 128, 128, torch.float32)
+    x = torch.randn((e, 47, k), generator=g, device=card)
+    mult = torch.randn((e, 47, n), generator=g, device=card)
+
+    def run(m, counts=None):
+        return ops.bsr_planes_matmul(
+            x[:, :m].contiguous(), stack, row_counts=counts,
+            epilogue=Epilogue(activation="silu", multiplier=mult[:, :m].contiguous()))
+
+    full = run(47)
+    for m in (1, 8):
+        assert torch.equal(run(m), full[:, :m]), f"M {m}"
+    counts = torch.tensor([[c] for c in (47, 0, 5, 16, 17, 1, 33, 46)],
+                          dtype=torch.int32, device=card)
+    with_counts = run(47, counts)
+    for p in range(e):
+        c = int(counts[p])
+        assert torch.equal(with_counts[p, :c], full[p, :c]), f"plane {p}"
+
+
+def _decode_case(card, g, lens, h, kvh, dh, ps, max_pages, pool_dtype=torch.float32):
+    """q, k_new, v_new, NaN-poisoned pools and shuffled tables for rows of
+    cached lengths ``lens``."""
+    b = len(lens)
+    kp, vp, tbl = _prefill_pools(card, g, lens, kvh, dh, ps, max_pages)
+    for r, ln in enumerate(lens):
+        if ln == 0:
+            tbl[r] = 0                                  # parked on the null page
+    q = torch.randn((b, h, dh), generator=g, device=card)
+    kn = torch.randn((b, kvh, dh), generator=g, device=card)
+    vn = torch.randn((b, kvh, dh), generator=g, device=card)
+    clen = torch.tensor(lens, dtype=torch.int32, device=card)
+    return q, kn, vn, kp.to(pool_dtype), vp.to(pool_dtype), tbl, clen
+
+
+@pytest.mark.parametrize("ps", [4, 8, 16])
+@pytest.mark.parametrize("h,kvh", [(16, 16), (16, 8), (8, 2), (4, 1)])
+def test_paged_decode_chunks_match_plain(card, ps, h, kvh):
+    """Lengths 0, 1, a chunk boundary (32), two chunks, more than 8 chunks
+    (1500), NaN in every slot no row owns; all four dtype pairs."""
+    from repro_torch.kernels.paged_attention import decode_chunk
+    chunk = decode_chunk(ps, 64)
+    lens = [0, 1, chunk, 2 * chunk, 1500]
+    g = torch.Generator(device=card).manual_seed(ps * 100 + h + kvh)
+    case = _decode_case(card, g, lens, h, kvh, 64, ps, -(-1500 // ps) + 1)
+    for qd in (torch.float32, torch.bfloat16):
+        for pd in (torch.float32, torch.bfloat16):
+            q, kn, vn = (t.to(qd) for t in case[:3])
+            kp, vp = case[3].to(pd), case[4].to(pd)
+            reset_launch_counts()
+            got = ops.paged_attention_decode(q, kn, vn, kp, vp, *case[5:])
+            torch.cuda.synchronize()
+            assert launch_counts["paged_attention_decode"] == 1
+            want = paged_attention_decode_plain(q, kn, vn, kp, vp, *case[5:])
+            assert torch.isfinite(got).all() and _rel_err(got, want) <= 2e-5, (qd, pd)
+
+
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_decode_row_bit_identical(card, ps):
+    """fp32: a decode row's output is the same bit for bit alone, inside a
+    ragged batch of 5 and with a wider page table."""
+    g = torch.Generator(device=card).manual_seed(ps)
+    lens = [61, 0, 1500, 7, 300]
+    mp = -(-1500 // ps) + 1
+    q, kn, vn, kp, vp, tbl, clen = _decode_case(card, g, lens, 16, 8, 64, ps, mp)
+    batch = ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen)
+    for r in (0, 2, 4):
+        one = [t[r:r + 1].contiguous() for t in (q, kn, vn)]
+        need = -(-lens[r] // ps)
+        alone = ops.paged_attention_decode(*one, kp, vp, tbl[r:r + 1, :max(need, 1)]
+                                           .contiguous(), clen[r:r + 1])
+        wide = torch.zeros((1, 4 * mp), dtype=torch.int32, device=card)
+        wide[0, :mp] = tbl[r]
+        wider = ops.paged_attention_decode(*one, kp, vp, wide, clen[r:r + 1])
+        assert torch.equal(alone, batch[r:r + 1]), f"row {r} alone"
+        assert torch.equal(wider, batch[r:r + 1]), f"row {r} wide table"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_head_dim_128(card, dtype):
+    g = torch.Generator(device=card).manual_seed(129)
+    lens = [70, 0, 400]
+    q, kn, vn, kp, vp, tbl, clen = _decode_case(card, g, lens, 8, 2, 128, 16, 26)
+    q, kn, vn, kp, vp = (t.to(dtype) for t in (q, kn, vn, kp, vp))
+    got = ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen)
+    want = paged_attention_decode_plain(q, kn, vn, kp, vp, tbl, clen)
+    assert torch.isfinite(got).all() and _rel_err(got, want) <= 2e-5

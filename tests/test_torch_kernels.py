@@ -31,11 +31,15 @@ from repro_torch.kernels.block_sparse_matmul import (
     H100_SMS,
     bsr_grid,
     bsr_matmul_plain,
+    bsr_planes_grid,
     bsr_slot_groups,
 )
 from repro_torch.kernels.epilogue import ACTIVATIONS, apply_epilogue
 from repro_torch.kernels.paged_attention import (
+    DECODE_RANKS,
     PREFILL_ROWS,
+    decode_chunk,
+    decode_grid,
     paged_attention_decode_plain,
     paged_attention_prefill_plain,
     prefill_grid,
@@ -283,3 +287,43 @@ def test_prefill_grid_at_main_path_prompts(h, kvh):
     grid = prefill_grid(1, 47, h, kvh)
     assert grid[1] == kvh and grid[0] * grid[1] * grid[2] >= 48
     assert grid[2] * PREFILL_ROWS >= 47 * (h // kvh) > (grid[2] - 1) * PREFILL_ROWS
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("ps", [4, 8, 16, 3, 64])
+def test_decode_chunk_and_grid_follow_ps_dh_and_the_table_only(ps, dh):
+    """The decode kernel's chunk is a multiple of the page size fixed by
+    (ps, dh) alone (a row's chunks, and their virtual ranks c % 8, then
+    follow from its own length); the grid's cluster size follows the
+    table width and never B or the lengths (no host sync); the main
+    paths' 10-page tables take 3 CTAs per (row, KV head)."""
+    chunk = decode_chunk(ps, dh)
+    assert chunk % ps == 0 and chunk >= 32 and chunk // ps <= 32
+    for width in (1, 3, 10, 64, 400):
+        ranks = {decode_grid(b, 8, ps, dh, width) for b in (1, 4, 5)}
+        assert ranks == {(min(DECODE_RANKS, -(-width * ps // chunk)), 8, b)
+                         for b in (1, 4, 5)}
+    assert decode_grid(4, 16, 8, 64, 10) == (3, 16, 4)
+    with pytest.raises(ValueError):
+        decode_chunk(ps, 96)
+
+
+def test_planes_grid_is_fixed_by_the_layout():
+    """The planes kernel's slot groups come from the stack's layout (E,
+    grid_n, max_nnz, bn), never from M, the segments or the counts; the
+    row tile follows the segment length C; grid.z is E x segments x row
+    tiles of a segment."""
+    rng = np.random.default_rng(5)
+    from repro_torch.core import BSRPlanes
+    planes = BSRPlanes.from_planes(tuple(
+        params_from_reference(_make_bsr(rng, 1024, 512, 128, 128, d))
+        for d in (0.2, 0.0, 1.0, 0.5)), shape=(4, 1024, 512))
+    for dtype, tiles in ((torch.float32, {8: 8, 15: 16, 47: 16, 200: 64}),
+                         (torch.bfloat16, {8: 16, 15: 16, 47: 16, 200: 64})):
+        geo = {(c, segs): bsr_planes_grid(c * segs, segs, planes, dtype)
+               for c in tiles for segs in (1, 2)}
+        for (c, segs), (grid, per, bm) in geo.items():
+            assert grid[:2] == geo[(8, 1)][0][:2] and per == geo[(8, 1)][1]
+            assert bm == tiles[c] and grid[2] == 4 * segs * -(-c // bm)
+    per, groups = bsr_slot_groups(4, 8, 128, planes=32)     # granite's up/gate
+    assert (per, groups) == (8, 1)

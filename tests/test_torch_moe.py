@@ -6,13 +6,17 @@ in the port:
 
 * the plain planes matmul against ``ref.bsr_planes_matmul_ref`` and the
   Pallas planes kernel in interpret mode (dead plane, ragged K/N, M = 1
-  and M > bm, every epilogue): fp32 within 1e-5, bf16 within 1e-2;
+  and M > bm, every epilogue): fp32 within 1e-5, bf16 within 1e-2; with
+  row counts it equals itself on x with the rows past each count zeroed,
+  and the reference on that x;
 * ``pack_params`` on 3-D expert leaves gives the reference's
   ``BSRPlanes`` bit for bit, and the bridge carries a ``BSRPlanes`` over
   as a ``BSRPlanes``, not as a ``BSRWeight`` with 3-D maps;
 * ``moe_apply`` / ``moe_decode`` (dense and packed experts) within 1e-5,
   aux within 1e-6, at a capacity factor that drops slots and at one that
-  drops none;
+  drops none; with the dispatch's row counts bit-identical to the same
+  call without them, and the counts equal to ``min(bincount, cap)`` of
+  the routing per group, computed in numpy;
 * the granite smoke model's prefill / decode logits within 1e-4 and its
   greedy tokens equal, dense and knapsack-pruned; the streamed engine
   token-identical to solo decode at a drop-free capacity factor;
@@ -51,13 +55,14 @@ from repro_torch.configs import get_config, make_smoke
 from repro_torch.core import BlockingSpec, BSRPlanes, BSRWeight
 from repro_torch.core.structures import iter_leaves
 from repro_torch.kernels import Epilogue, launch_counts, ops, reset_launch_counts
-from repro_torch.kernels.block_sparse_matmul import bsr_planes_matmul_plain
+from repro_torch.kernels.block_sparse_matmul import bsr_planes_matmul_plain, live_rows
 from repro_torch.kernels.structure_norms import structure_norms_plain
 from repro_torch.launch import serve
 from repro_torch.models import init_caches
 from repro_torch.models import lm_decode as tlm_decode
 from repro_torch.models import lm_generate as tlm_generate
 from repro_torch.models import lm_prefill as tlm_prefill
+from repro_torch.models import moe as tmoe
 from repro_torch.models.moe import moe_apply, moe_decode, router_logits
 from repro_torch.serving import ServingEngine
 from repro_torch.sparse import knapsack_prune, pack_params, sparsity_summary
@@ -176,6 +181,47 @@ def test_planes_ops_dispatch_cpu_takes_plain_version_without_launches():
     w = torch.from_numpy(rng.normal(size=(100, 36)).astype(np.float32))
     assert torch.equal(ops.structure_norms(w, 32, 32),
                        structure_norms_plain(w, 32, 32))
+    assert all(v == 0 for v in launch_counts.values()), launch_counts
+
+
+# (segments, C) -> per-plane counts of 0, C and ragged ones, for 3 planes
+ROW_COUNTS = {
+    "zero": {1: [[0], [0], [0]], 2: [[0, 0], [0, 0], [0, 0]]},
+    "full": {1: [[8], [8], [8]], 2: [[8, 8], [8, 8], [8, 8]]},
+    "ragged": {1: [[3], [0], [8]], 2: [[1, 8], [0, 5], [8, 0]]},
+}
+
+
+@pytest.mark.parametrize("spec", ["none"] + EPI_SPECS)
+@pytest.mark.parametrize("segs", [1, 2])
+@pytest.mark.parametrize("kind", sorted(ROW_COUNTS))
+def test_planes_plain_row_counts_zero_the_rows_past_the_count(kind, segs, spec):
+    """With row counts, the plain planes matmul equals itself on x whose
+    rows past each segment's count are zeroed (bit for bit), and the
+    reference and the Pallas kernel on that x."""
+    e, c, k, n = 3, 8, 96, 64
+    m = segs * c
+    rng = np.random.default_rng(17 * segs + len(spec))
+    jplanes = _make_planes(rng, e, k, n, 32, 32, (0.5, 1.0, 0.3), jnp.float32)
+    x = rng.normal(size=(e, m, k)).astype(np.float32)
+    counts = torch.tensor(ROW_COUNTS[kind][segs], dtype=torch.int32)
+    live = live_rows(counts, m).numpy()
+    assert live.shape == (e, m) and live.sum() == int(counts.sum())
+    x0 = np.where(live[..., None], x, 0.0).astype(np.float32)
+    je, te = _epilogues(rng, (e, m), n, spec, jnp.float32)
+    planes = params_from_reference(jplanes)
+    got = bsr_planes_matmul_plain(torch.from_numpy(x), planes, epilogue=te,
+                                  row_counts=counts)
+    assert torch.equal(got, bsr_planes_matmul_plain(torch.from_numpy(x0), planes,
+                                                    epilogue=te))
+    want = np.asarray(jplanes_ref(jnp.asarray(x0), jplanes, epilogue=je))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    # through the ops dispatch, with x shaped (E, segments, C, K)
+    reset_launch_counts()
+    te4 = None if te is None else te.map_operands(lambda a: a.reshape(e, segs, c, n))
+    y = ops.bsr_planes_matmul(torch.from_numpy(x).reshape(e, segs, c, k), planes,
+                              epilogue=te4, row_counts=counts)
+    assert torch.equal(y.reshape(e, m, n), got)
     assert all(v == 0 for v in launch_counts.values()), launch_counts
 
 
@@ -303,6 +349,65 @@ def test_moe_apply_and_decode_match_reference(kind, cf):
     got, aux = moe_decode(tp, torch.from_numpy(xd), num_experts=4, top_k=2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
     np.testing.assert_allclose(float(aux), float(jaux), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("cf", [1.25, 4.0])
+@pytest.mark.parametrize("kind", ["dense", "packed"])
+def test_moe_row_counts_bit_identical_and_match_reference(monkeypatch, kind, cf):
+    """The dispatch's row counts change nothing: moe_apply and moe_decode
+    give the same bits with them and without them (the expert matmuls
+    handed no counts), and the JAX reference's output within 1e-5, at a
+    capacity factor that drops slots (1.25) and at one that drops none
+    (4.0 = E/k for the decode's 2 of 4)."""
+    jp, tp = _moe_params(kind)
+    rng = np.random.default_rng(int(cf * 8))
+    x = torch.from_numpy(rng.normal(size=(2, 24, 128)).astype(np.float32))
+    xd = torch.from_numpy(rng.normal(size=(5, 1, 128)).astype(np.float32))
+    kw = dict(num_experts=4, top_k=2, capacity_factor=cf)
+    got, aux = moe_apply(tp, x, **kw)
+    got_d = moe_decode(tp, xd, **kw)[0]
+    want, _ = jmoe_apply(jp, jnp.asarray(x.numpy()), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+    want, _ = jmoe_decode(jp, jnp.asarray(xd.numpy()), **kw)
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+    monkeypatch.setattr(tmoe, "expert_row_counts", lambda *a: None)
+    plain, aux0 = moe_apply(tp, x, **kw)
+    assert torch.equal(got, plain) and torch.equal(aux, aux0)
+    assert torch.equal(got_d, moe_decode(tp, xd, **kw)[0])
+
+
+@pytest.mark.parametrize("cf,groups", [(1.25, None), (1.25, 4), (4.0, None)])
+def test_expert_row_counts_are_min_of_bincount_and_capacity(monkeypatch, cf, groups):
+    """Every expert matmul gets the (g, E) counts min(tokens routed to e
+    in group g, cap), computed here in numpy from the routing."""
+    _, tp = _moe_params("packed")
+    rng = np.random.default_rng(23)
+    b, s, d, e_n, k = 2, 24, 128, 4, 2
+    x = rng.normal(size=(b, s, d)).astype(np.float32)
+    seen = []
+
+    def spy(h, w, **kw):
+        seen.append(kw.get("row_counts"))
+        return expert_matmul(h, w, **kw)
+
+    expert_matmul = tmoe.expert_matmul
+    monkeypatch.setattr(tmoe, "expert_matmul", spy)
+    moe_apply(tp, torch.from_numpy(x), num_experts=e_n, top_k=k,
+              capacity_factor=cf, groups=groups)
+    g = np.gcd(groups or b, b * s)
+    n = b * s // g
+    cap = max(int(np.ceil(n * k * cf / e_n)), k)
+    logits = router_logits(torch.from_numpy(x).reshape(g, n, d),
+                           tp["router"]["kernel"]).numpy()
+    top = np.argsort(-logits, axis=-1, kind="stable")[..., :k].reshape(g, -1)
+    want = np.stack([np.minimum(np.bincount(t, minlength=e_n), cap) for t in top])
+    assert len(seen) == 3                              # up, gate, down
+    for counts in seen:
+        assert counts.dtype == torch.int32 and counts.shape == (g, e_n)
+        np.testing.assert_array_equal(counts.numpy(), want)
+    if (cf, groups) == (1.25, 4):                 # a case where slots drop
+        assert (want < np.stack([np.bincount(t, minlength=e_n) for t in top])).any()
 
 
 # ---------------------------------------------------------------------------
