@@ -44,7 +44,28 @@ Phases, any failure ends the run with a non-zero exit code:
    every kernel of the path must have run, and each BSR kernel exactly
    once per weight per forward pass (granite: 3 planes launches per MoE
    layer per decode tick and per prefill, so no loop over experts), and
-   paged decode once per layer per tick;
+   paged decode once per layer per tick.  The decode chunks of runs (a)
+   and (b) are CUDA graphs (the engine's default on the card): a replay
+   counts the launches its capture recorded, so the counts stay exact;
+   3b. on run (a)'s fp32 params: (c) qwen1.5-0.5b on run (a)'s traffic
+   with every other request sampled (temperature 0.8, top-k 50, top-p
+   0.9), alternating priority classes, a TTFT target on class 0 and the
+   adaptive chunk policy (levels 1/2/4/8/16); (d) granite-moe-1b-a400m
+   greedy at capacity factor 4.0; each served by an engine with eager
+   chunks and by one with CUDA graphs (a capturing pass, then a steady
+   one), gated on exact launch counts in every pass, graphed streams
+   equal to eager ones and to solo decode (sampled ones with the
+   engine's key), captures within 2 x the levels and none new in the
+   steady pass, at least one chunk shrink (c), and every replay under
+   ``torch.cuda.set_sync_debug_mode("error")``; (e) qwen1.5-0.5b,
+   graphed, under the launcher's chaos plan (NaN poisoning, an
+   allocation failure, index corruption, a chunk exception, a cancel, a
+   deadline, queue-full rejects), gated on every request terminal with
+   its planned fate, the streams without a fault equal to solo decode,
+   each fault counted once, the engine degraded to 1-tick graphs and
+   serving on, and the pool drained exactly.  Wall per tick, tok/s,
+   TTFT p50, the card's busy share (profiled pass) and the capture
+   seconds per variant are reported for eager and graphed;
 4. one ``kernels`` JSON line with all five kernels: launches over the
    two runs (a), error against the plain version at the main paths'
    shapes (held to the phase-2 tolerances), the card's busy share over
@@ -863,44 +884,38 @@ def traffic(vocab: int, seed: int):
     return prompts
 
 
-def serve_once(params, cfg, prompts, gen, dev):
+def serve_once(params, cfg, prompts, gen, dev, cuda_graphs=True):
+    """Run (a)'s traffic through a fresh engine (4 ticks per sync); see
+    ``serve_pass``.  Returns (engine, requests by rid, seconds)."""
     import torch
-    from repro_torch.serving import RequestStatus, ServingEngine
+    from repro_torch.serving import ServingEngine
     eng = ServingEngine(params, cfg, num_slots=4, page_size=8,
                         max_seq_len=max(len(p) for p in prompts) + gen,
-                        ticks_per_sync=4, device=dev)
-    for i, p in enumerate(prompts):
-        eng.submit(p, gen, arrival=2 * i)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    if len(done) != len(prompts) or any(
-            r.status is not RequestStatus.FINISHED or len(r.tokens) != gen
-            for r in done.values()):
-        raise AssertionError(f"{cfg.name}: a stream failed (non-finite "
-                             "logits) or ended short")
-    return eng, done, dt
+                        ticks_per_sync=4, device=dev, cuda_graphs=cuda_graphs)
+    run = serve_pass(torch, eng, prompts, gen)
+    return eng, run["done"], run["seconds"]
 
 
-def device_busy(torch, params, cfg, prompts, gen, dev, wall_s):
-    """Where run (a)'s time goes: the same run again under torch.profiler.
-    The kernels' summed device time (one stream, so no overlap) over the
+def device_busy(torch, run, wall_s):
+    """Where a run's time goes: ``run()`` (the same run again) under
+    torch.profiler, recording the card's activity only.  The kernels' and
+    copies' summed device time (one stream, so no overlap) over the
     unprofiled run's wall time is the card's busy share; the rest is host
-    time (Python, launches, syncs).  Reported, not gated: a profiler that
-    cannot start or stop, or shows no device time, gives "not measured".
-    A failure of the engine run itself ends the script."""
+    time (Python, launches, syncs).  The device events are summed straight
+    from the profiler's raw results: building its per-op tables takes
+    tens of seconds over a run of ~60k kernels.  Reported, not gated: a
+    profiler that cannot start or stop, or shows no device time, gives
+    "not measured".  A failure of the engine run itself ends the script."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
     try:
         prof.start()
     except Exception as exc:                    # the profiler's own failure
         return {"busy_share": "not measured", "error": repr(exc)}
     stop_error = None
     try:
-        serve_once(params, cfg, prompts, gen, dev)
+        run()
     finally:
         try:
             prof.stop()
@@ -908,14 +923,15 @@ def device_busy(torch, params, cfg, prompts, gen, dev, wall_s):
             stop_error = exc
     if stop_error is not None:
         return {"busy_share": "not measured", "error": repr(stop_error)}
+    by_name = {}
     try:
-        avgs = prof.key_averages()
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                ms, calls = by_name.get(e.name(), (0.0, 0))
+                by_name[e.name()] = (ms + e.duration_ns() / 1e6, calls + 1)
     except Exception as exc:                    # the profiler's own failure
         return {"busy_share": "not measured", "error": repr(exc)}
-    # device-side events only (kernels, copies): a CPU op's device time
-    # repeats its kernels'
-    kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in avgs if e.device_type == DeviceType.CUDA),
+    kern = sorted(((ms, calls, name) for name, (ms, calls) in by_name.items()),
                   reverse=True)
     busy_ms = sum(t for t, _, _ in kern)
     if busy_ms <= 0:
@@ -938,7 +954,8 @@ PER_LAYER = {
 def main_path(torch, dev, gpu_line, arch: str, cf_a=None):
     """Serve ``arch`` at full width: run (a) in fp32 (at capacity factor
     ``cf_a`` for MoE) gated on stream == solo decode, run (b) in the
-    config's dtypes.  Returns (stats_a, stats_b, capture, launches)."""
+    config's dtypes.  Returns (stats_a, stats_b, capture, launches, (fp32
+    params, fp32 config, prompts, gen)) — run (a)'s inputs, for phase 3b."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.launch import serve
@@ -959,11 +976,14 @@ def main_path(torch, dev, gpu_line, arch: str, cf_a=None):
         f"({summ['method']}), BSR density {summ['density']:.4f} "
         f"({summ['nnz_blocks']}/{summ['total_blocks']} blocks)")
 
-    with Capture(torch, ops) as cap:        # warm-up run, inputs captured
-        serve_once(params, cfg_a, prompts, gen, dev)
+    # warm-up run with eager chunks (the capture of the kernels' inputs
+    # reads lengths back to the host, which a CUDA graph cannot hold)
+    with Capture(torch, ops) as cap:
+        serve_once(params, cfg_a, prompts, gen, dev, cuda_graphs=False)
     _build.reset_launch_counts()
     eng, done, dt = serve_once(params, cfg_a, prompts, gen, dev)
     launches = dict(_build.launch_counts)
+    graphs_a = eng.analysis_stats()
     emitted = sum(len(r.tokens) for r in done.values())
     ttft = sorted(eng.ttft_seconds(r) * 1e3 for r in done)
     st = eng.prefix_stats
@@ -976,12 +996,14 @@ def main_path(torch, dev, gpu_line, arch: str, cf_a=None):
                    decode_ticks=eng.decode_ticks, forward_passes=passes,
                    slot_utilization=eng.slot_utilization,
                    density=summ["density"], nnz_blocks=summ["nnz_blocks"],
-                   total_blocks=summ["total_blocks"])
+                   total_blocks=summ["total_blocks"], cuda_graphs=graphs_a)
     log(f"  (a) fp32: {len(done)} requests, {emitted} tokens in {dt:.3f}s = "
         f"{emitted / dt:.1f} tok/s, TTFT p50 {stats_a['ttft_ms_p50']:.2f} ms "
         f"max {ttft[-1]:.2f} ms, {st['hit_requests']} prefix-hit requests "
         f"({st['pages_shared']} pages mapped), {eng.decode_ticks} decode "
-        f"ticks + {len(done)} prefills, launches {launches}")
+        f"ticks + {len(done)} prefills, launches {launches}; CUDA graphs "
+        f"{graphs_a['variants']} (captured in this run), replays "
+        f"{graphs_a['replays']}")
     log(f"  {arch} (a) on {gpu_line}: {emitted / dt:.1f} tok/s, TTFT p50 "
         f"{stats_a['ttft_ms_p50']:.2f} ms")
     if st["hit_requests"] < 1:
@@ -1011,7 +1033,8 @@ def main_path(torch, dev, gpu_line, arch: str, cf_a=None):
     log(f"  (a) fp32: all {len(done)} streams token-identical to solo decode; "
         + ", ".join(f"{name} {launches[name]} = {per} x {base.n_layers} x "
                     f"{passes} passes" for name, per in PER_LAYER[arch].items()))
-    busy = device_busy(torch, params, cfg_a, prompts, gen, dev, dt)
+    busy = device_busy(
+        torch, lambda: serve_once(params, cfg_a, prompts, gen, dev), dt)
     stats_a["device"] = busy
     if isinstance(busy["busy_share"], float):
         log(f"  (a) fp32: card busy {busy['device_busy_ms']:.1f} of "
@@ -1023,8 +1046,7 @@ def main_path(torch, dev, gpu_line, arch: str, cf_a=None):
     else:
         log(f"  (a) fp32: card busy share not measured ({busy['error']})")
     first_a = {rid: int(r.tokens[0]) for rid, r in done.items()}
-    del params, eng
-    torch.cuda.empty_cache()
+    del eng
 
     # (b) the config's own dtypes (and capacity factor), same seed and traffic
     params_b, _ = serve.build_params(base, seed=seed, device=dev, pruned=0.75,
@@ -1045,7 +1067,255 @@ def main_path(torch, dev, gpu_line, arch: str, cf_a=None):
         f"(reported, not gated)")
     del params_b, eng_b
     torch.cuda.empty_cache()
-    return stats_a, stats_b, cap, launches
+    return stats_a, stats_b, cap, launches, (params, cfg_a, prompts, gen)
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: sampled, adaptive and chaos serving; eager chunks vs CUDA graphs
+# ---------------------------------------------------------------------------
+
+LEVELS = (1, 2, 4, 8, 16)                 # the adaptive policy's chunk lengths
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
+TTFT_TARGET = 8                           # ticks, on the interactive class
+
+
+def submit_traffic(eng, prompts, gen, *, sampled=False, adaptive=False):
+    """Run (a)'s traffic from the engine's current tick (arrivals every 2
+    ticks).  ``sampled``: every other request samples (temperatures
+    cycled 0, 0.8; top-k 50, top-p 0.9).  ``adaptive``: alternating
+    priority classes, a TTFT target on class 0."""
+    base = eng.tick
+    for i, p in enumerate(prompts):
+        kw = dict(SAMPLING) if sampled and i % 2 else {}
+        if adaptive:
+            kw["priority"] = i % 2
+            if i % 2 == 0:
+                kw["ttft_target_ticks"] = TTFT_TARGET
+        eng.submit(p, gen, arrival=base + 2 * i, **kw)
+
+
+def serve_pass(torch, eng, prompts, gen, **traffic_kw):
+    """One pass of the traffic through ``eng`` (which may have served
+    passes before).  Launch counts are zeroed just before it and read
+    just after.  Returns a dict: this pass's requests by rid, seconds,
+    decode ticks, admissions, launches, tok/s, TTFT p50 and wall ms per
+    tick."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import RequestStatus
+    first = eng._next_rid
+    ticks0 = eng.decode_ticks
+    submit_traffic(eng, prompts, gen, **traffic_kw)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    mine = {rid: r for rid, r in done.items() if rid >= first}
+    if len(mine) != len(prompts) or any(
+            r.status is not RequestStatus.FINISHED or len(r.tokens) != gen
+            for r in mine.values()):
+        raise AssertionError(f"{eng.cfg.name}: a stream failed (non-finite "
+                             "logits) or ended short")
+    ticks = eng.decode_ticks - ticks0
+    emitted = sum(len(r.tokens) for r in mine.values())
+    return dict(done=mine, seconds=dt, decode_ticks=ticks,
+                admissions=len(mine), launches=launches,
+                tok_per_s=emitted / dt, wall_ms_per_tick=dt / ticks * 1e3,
+                ttft_ms_p50=statistics.median(
+                    eng.ttft_seconds(r) * 1e3 for r in mine))
+
+
+def gate_launches(arch, label, n_layers, run):
+    """Run (a)'s exact launch counts for one pass: each BSR kernel once
+    per weight per forward pass, paged decode once per layer per tick,
+    paged prefill once per layer per admission."""
+    passes = run["decode_ticks"] + run["admissions"]
+    want = {name: per * n_layers * passes
+            for name, per in PER_LAYER[arch].items()}
+    want["paged_attention_decode"] = n_layers * run["decode_ticks"]
+    want["paged_attention_prefill"] = n_layers * run["admissions"]
+    got = {name: run["launches"][name] for name in want}
+    if got != want:
+        raise AssertionError(f"{arch} {label}: launches {got} != {want}")
+    return want
+
+
+def same_streams(label, a, b):
+    diff = [rid for rid in a if not (a[rid].tokens.shape == b[rid].tokens.shape
+                                     and (a[rid].tokens == b[rid].tokens).all())]
+    if sorted(a) != sorted(b) or diff:
+        raise AssertionError(f"{label}: streams {diff} differ")
+
+
+def public(run):
+    """A pass's numbers for the report (no request objects)."""
+    return {k: v for k, v in run.items() if k != "done"}
+
+
+def eager_vs_graphed(torch, dev, gpu_line, arch, params, cfg, prompts, gen, *,
+                     sampled, adaptive):
+    """Serve the traffic through an engine with eager chunks and one with
+    CUDA graphs: eager one timed pass and one profiled; graphed a first
+    pass (captures), a second (steady state: nothing new captured) and
+    a profiled third.  Gated: exact launch counts in every pass (through
+    replays), the captures within the declared variants and none new in
+    the second pass, graphed pass 1 streams equal to the eager ones (same
+    rids, same keys), graphed pass 2 streams token-identical to their
+    solo decode (sampled ones with the engine's key) and its greedy
+    streams equal to pass 1's.  Replays run under sync-debug "error" in
+    the engine itself, so a hidden sync fails the run."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import AdaptiveChunkPolicy, ServingEngine
+    kw = dict(sampled=sampled, adaptive=adaptive)
+    out, passes, engines, secs = {}, {}, {}, {}
+    for graphed in (False, True):
+        t0 = time.perf_counter()
+        eng = ServingEngine(
+            params, cfg, num_slots=4, page_size=8,
+            max_seq_len=max(len(p) for p in prompts) + gen,
+            ticks_per_sync=LEVELS[-1] if adaptive else 4,
+            chunk_policy=AdaptiveChunkPolicy(LEVELS) if adaptive else None,
+            device=dev, cuda_graphs=graphed)
+        mode = "graphed" if graphed else "eager"
+        runs = [serve_pass(torch, eng, prompts, gen, **kw)]
+        if graphed:
+            caps1 = eng.analysis_stats()["captures"]
+            runs.append(serve_pass(torch, eng, prompts, gen, **kw))
+        an = eng.analysis_stats()
+        steady = runs[-1]
+        t1 = time.perf_counter()
+        busy = device_busy(torch, lambda: serve_pass(torch, eng, prompts, gen,
+                                                     **kw), steady["seconds"])
+        secs[mode] = dict(passes=t1 - t0, profile=time.perf_counter() - t1)
+        for i, run in enumerate(runs):
+            gate_launches(arch, f"{mode} pass {i + 1}", cfg.n_layers, run)
+        slo = eng.slo_stats()
+        if adaptive and slo["chunk_shrinks"] < 1:
+            raise AssertionError(f"{arch} {mode}: no chunk shrank")
+        if graphed:
+            limit = 2 * len(LEVELS) if adaptive else 2
+            if an["captures"] > limit:
+                raise AssertionError(f"{arch}: {an['captures']} captured "
+                                     f"variants > {limit}")
+            if an["captures"] != caps1:
+                raise AssertionError(f"{arch}: the second pass captured "
+                                     f"{an['captures'] - caps1} new variants")
+        passes[mode] = runs
+        engines[mode] = eng
+        out[mode] = dict(passes=[public(r) for r in runs], device=busy,
+                         chunks_by_ticks=slo["chunks_by_ticks"],
+                         chunk_shrinks=slo["chunk_shrinks"],
+                         chunk_grows=slo["chunk_grows"],
+                         variants=an["variants"],
+                         capture_seconds=an.get("capture_seconds", {}),
+                         replays=an.get("replays", {}))
+        share = busy["busy_share"]
+        share = (f"busy {busy['device_busy_ms']:.1f} ms = {100 * share:.1f}% "
+                 "of wall" if isinstance(share, float) else
+                 f"busy share not measured ({busy.get('error')})")
+        log(f"  {arch} {mode}: {steady['wall_ms_per_tick']:.2f} ms wall per "
+            f"tick over {steady['decode_ticks']} ticks, {steady['tok_per_s']:.1f}"
+            f" tok/s, TTFT p50 {steady['ttft_ms_p50']:.2f} ms, {share}; "
+            f"chunks {slo['chunks_by_ticks']} ({slo['chunk_shrinks']} shrinks)"
+            + (f"; captures {an.get('capture_seconds')}" if graphed else ""))
+    g1, g2 = passes["graphed"][0]["done"], passes["graphed"][1]["done"]
+    same_streams(f"{arch} graphed pass 1 vs eager", g1,
+                 passes["eager"][0]["done"])
+    greedy = {r: q for r, q in g1.items() if not (q.temperature or 0) > 0}
+    shift = min(g2) - min(g1)
+    same_streams(f"{arch} greedy streams, graphed pass 2 vs pass 1", greedy,
+                 {r: g2[r + shift] for r in greedy})
+    t2 = time.perf_counter()
+    bad = serve.verify_streams(params, cfg, g2, gen, device=dev,
+                               engine=engines["graphed"])
+    secs["verify"] = time.perf_counter() - t2
+    if bad:
+        raise AssertionError(f"{arch} graphed pass 2: streams {bad} differ "
+                             "from solo decode")
+    n_s = len(g1) - len(greedy)
+    out["seconds"] = secs
+    log(f"  {arch}: graphed pass 1 streams == eager streams; graphed pass 2 "
+        f"streams token-identical to solo decode ({n_s} of {len(prompts)} "
+        f"sampled) and its greedy ones to pass 1's; exact launch counts "
+        f"through replays; seconds {secs}; on {gpu_line}")
+    return out
+
+
+def chaos_run(torch, dev, gpu_line, params, cfg):
+    """Run (e): qwen at full width, graphed, under the launcher's chaos
+    plan (NaN poisoning, an allocation failure, index corruption, a
+    chunk exception) plus a cancel, a deadline and rejects from a full
+    queue.  Gated by ``serve.check_chaos`` (every request terminal with
+    its planned fate, streams without a fault equal to solo decode, the
+    others solo prefixes, the pool drained exactly), each planned fault
+    counted once, and the degraded engine serving on in 1-tick graphs."""
+    import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.serving import FaultInjector, ServingEngine
+    requests, plen, gen = 6, 16, 12
+    rng = np.random.default_rng(0)
+    lens = rng.integers(plen // 2, plen + 1, size=requests)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in lens]
+    plan, victim = serve.chaos_plan(requests)
+    inj = FaultInjector(plan, seed=0)
+    eng = ServingEngine(params, cfg, num_slots=4, page_size=8,
+                        max_seq_len=plen + gen, ticks_per_sync=4, seed=0,
+                        max_queue=requests + 2, fault_injector=inj, device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(p, gen, arrival=2 * i)
+    rid_cancel, rid_expire, rejected = serve.serve_chaos(eng, prompts, gen)
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    failures = serve.check_chaos(eng, inj, done, params, cfg, gen, device=dev,
+                                 victim=victim, rid_cancel=rid_cancel,
+                                 rid_expire=rid_expire, rejected=rejected)
+    st = eng.fault_stats
+    once = dict(guard_trips=1, failed=1, chunk_failures=1, alloc_failures=1,
+                index_drops=1, cancelled=1, expired=1, rejected=3, degraded=1)
+    failures += [f"fault_stats[{k}] = {st[k]}, not {v}"
+                 for k, v in once.items() if st[k] != v]
+    an = eng.analysis_stats()
+    if "1/greedy" not in an["variants"] or not eng.chunks_by_ticks.get(1):
+        failures.append(f"the degraded engine served no 1-tick graph: "
+                        f"{an['variants']}, chunks {eng.chunks_by_ticks}")
+    if failures:
+        raise AssertionError("chaos run (e): " + "; ".join(failures))
+    log(f"  chaos (e), graphed: {len(done)} requests terminal in {dt:.3f}s "
+        f"(checks {time.perf_counter() - t1:.1f}s) "
+        f"({sorted((r.rid, r.status.value) for r in done.values())}); fault "
+        f"counters {st}; fired {[(k, t) for k, t, _ in inj.fired]}; graphs "
+        f"{an['variants']}; pool drained exactly; on {gpu_line}")
+    return dict(seconds=dt, fault_stats=st, fired=[(k, t) for k, t, _ in inj.fired],
+                variants=an["variants"], chunks_by_ticks=dict(eng.chunks_by_ticks),
+                statuses={rid: r.status.value for rid, r in done.items()})
+
+
+def serving_runs(torch, dev, gpu_line, paths):
+    """Phase 3b on run (a)'s fp32 params: (c) qwen sampled + adaptive,
+    eager vs graphed; (d) granite greedy at capacity factor 4.0, eager vs
+    graphed; (e) qwen chaos, graphed."""
+    t0 = time.perf_counter()
+    params, cfg, prompts, gen = paths["qwen1.5-0.5b"][4]
+    log("phase 3b: (c) qwen1.5-0.5b sampled + adaptive, eager vs CUDA graphs")
+    runs = {"c": eager_vs_graphed(torch, dev, gpu_line, "qwen1.5-0.5b", params,
+                                  cfg, prompts, gen, sampled=True, adaptive=True)}
+    log("phase 3b: (e) qwen1.5-0.5b chaos, CUDA graphs")
+    runs["e"] = chaos_run(torch, dev, gpu_line, params, cfg)
+    params, cfg, prompts, gen = paths["granite-moe-1b-a400m"][4]
+    log("phase 3b: (d) granite-moe-1b-a400m greedy at capacity factor 4.0, "
+        "eager vs CUDA graphs")
+    runs["d"] = eager_vs_graphed(torch, dev, gpu_line, "granite-moe-1b-a400m",
+                                 params, cfg, prompts, gen, sampled=False,
+                                 adaptive=False)
+    runs["seconds"] = time.perf_counter() - t0
+    log(f"  phase 3b took {runs['seconds']:.1f}s")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -1482,7 +1752,7 @@ def main() -> int:
     paths = {}
     for arch, cf_a in (("qwen1.5-0.5b", None), ("granite-moe-1b-a400m", 4.0)):
         log(f"phase 3: main path, {arch} full width, knapsack 0.75, BSR 128x128")
-        paths[arch] = main_path(torch, dev, gpu_line, arch, cf_a=cf_a)
+        paths[arch] = list(main_path(torch, dev, gpu_line, arch, cf_a=cf_a))
         log(f"  {arch} done at {time.perf_counter() - t_start:.1f}s")
         if arch == "qwen1.5-0.5b":
             # the batch-invariance gate of phase 2 on the real pruned layouts
@@ -1495,6 +1765,11 @@ def main() -> int:
                 f"knapsack-pruned layouts "
                 f"{[(b.shape, b.max_nnz) for _, b in real]}")
 
+    serving = serving_runs(torch, dev, gpu_line, paths)
+    for p in paths.values():
+        del p[4]
+    torch.cuda.empty_cache()
+
     log("phase 4: kernel times at the main paths' shapes (CUDA events)")
     kernels = timings(torch, dev, {a: p[2] for a, p in paths.items()},
                       {a: p[3] for a, p in paths.items()})
@@ -1503,6 +1778,7 @@ def main() -> int:
                   build_seconds=secs,
                   main_paths={a: {"fp32": p[0], "config_dtype": p[1]}
                               for a, p in paths.items()},
+                  serving=serving,
                   kernels=kernels, seconds=time.perf_counter() - t_start)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

@@ -12,10 +12,15 @@ Nothing here runs at import time: the CPU tests import every module of
 the port on a machine with no ``nvcc`` and no card.
 
 ``launch_counts`` holds one plain integer per kernel; each wrapper adds
-one where it launches its kernel, and nowhere else.
+one where it launches its kernel, and nowhere else.  A CUDA graph
+launches its kernels without calling the wrappers: ``recorded_launches``
+takes back what the wrappers counted while the graph was captured (a
+capture launches nothing) and keeps it, and ``add_launches`` adds it at
+every replay (``serving/graphs.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,11 +28,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator
 
 __all__ = [
     "SOURCES", "NVCC_FLAGS", "build_all", "build_logs", "library", "check",
-    "launch_counts", "reset_launch_counts",
+    "launch_counts", "reset_launch_counts", "add_launches",
+    "recorded_launches",
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -52,6 +58,28 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add per-kernel launch counts (a graph replay's)."""
+    for name, n in counts.items():
+        launch_counts[name] += n
+
+
+@contextlib.contextmanager
+def recorded_launches() -> Iterator[Dict[str, int]]:
+    """Inside the block, the wrappers' counts are recorded, not counted:
+    on exit ``launch_counts`` is back where it was and the yielded dict
+    holds each kernel's count from the block (for a graph capture)."""
+    before = dict(launch_counts)
+    rec: Dict[str, int] = {}
+    try:
+        yield rec
+    finally:
+        for name, n in before.items():
+            if launch_counts[name] != n:
+                rec[name] = launch_counts[name] - n
+            launch_counts[name] = n
 
 
 def _nvcc() -> str:

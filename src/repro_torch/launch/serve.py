@@ -7,13 +7,26 @@ runs on the card (``--device cpu`` runs the plain versions on the CPU,
 ``--smoke`` the reduced config).  ``--pruned`` knapsack-prunes the
 model at ``--block`` tiles and packs it to BSR, so every projection
 runs the BSR kernel.  Without ``--stream`` a fixed batch is prefilled
-and decoded greedily on contiguous caches.  With ``--stream`` ragged
-requests arrive every ``--arrive-every`` ticks and flow through the
-continuous-batching engine (paged KV pool, paged prefill and decode
-kernels, ``--ticks-per-sync`` decode steps per host sync); every stream
-is then verified token-identical to its solo greedy decode through
-``lm_prefill`` + ``lm_generate`` on contiguous caches.  The run exits 1
-on any divergence or, with ``--shared-prefix``, on zero prefix hits.
+and decoded on contiguous caches, greedy or sampled (``--temperature``,
+``--top-k``, ``--top-p``).  With ``--stream`` ragged requests arrive
+every ``--arrive-every`` ticks and flow through the continuous-batching
+engine (paged KV pool, paged prefill and decode kernels,
+``--ticks-per-sync`` decode steps per host sync, each chunk a CUDA graph
+on the card); ``--request-temperatures`` cycles per-request
+temperatures through the stream.  Every stream is then verified
+token-identical to its solo decode through ``lm_prefill`` +
+``lm_generate`` on contiguous caches, a sampled one with the engine's
+key for its request.  The run exits 1 on any divergence or, with
+``--shared-prefix``, on zero prefix hits.
+
+``--adaptive`` picks each chunk's length with the SLO-aware policy over
+the levels 1, 2, 4, .. up to ``--ticks-per-sync``, with alternating
+priority classes and a TTFT target on the interactive one; it fails
+unless a chunk shrank and every stream verifies.  ``--chaos`` serves
+under a seeded plan of every injected fault plus a cancel, a deadline
+and rejects from a full queue; it fails unless every request ends in a
+terminal status, the streams without a fault match their solo decode
+(the others are solo-decode prefixes) and the page pool drains exactly.
 """
 from __future__ import annotations
 
@@ -25,8 +38,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["build_params", "stream_prompts", "solo_decode", "verify_streams",
-           "main"]
+__all__ = ["build_params", "stream_prompts", "solo_decode", "solo_decode_for",
+           "verify_streams", "chaos_plan", "serve_chaos", "check_chaos", "main"]
 
 
 def build_params(cfg, *, seed: int, device, pruned: Optional[float] = None,
@@ -73,9 +86,12 @@ def stream_prompts(vocab: int, *, requests: int, prompt_len: int,
 
 @torch.no_grad()
 def solo_decode(params, cfg, prompt: np.ndarray, gen: int, *, device,
-                eos_id: Optional[int] = None) -> np.ndarray:
-    """Greedy decode of one prompt alone on contiguous caches:
-    ``lm_prefill`` then ``lm_generate``.  Returns (gen,) int32 tokens."""
+                eos_id: Optional[int] = None, temperature: float = 0.0,
+                top_k: Optional[int] = None, top_p: Optional[float] = None,
+                key: Optional[torch.Tensor] = None) -> np.ndarray:
+    """Decode of one prompt alone on contiguous caches: ``lm_prefill``
+    then ``lm_generate``, greedy or sampled from ``key``.  Returns (gen,)
+    int32 tokens."""
     from repro_torch.models import init_caches, lm_generate, lm_prefill
 
     caches = init_caches(cfg, 1, len(prompt) + gen, torch.float32, device)
@@ -83,18 +99,35 @@ def solo_decode(params, cfg, prompt: np.ndarray, gen: int, *, device,
     logits, caches = lm_prefill(params, caches, {"tokens": toks}, cfg)
     first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     want, _ = lm_generate(params, caches, first, len(prompt), gen, cfg,
-                          eos_id=eos_id)
+                          temperature=temperature, top_k=top_k, top_p=top_p,
+                          eos_id=eos_id, key=key)
     return want[0].cpu().numpy()
 
 
+def solo_decode_for(engine, params, cfg, req, gen: int, *, device,
+                    eos_id: Optional[int] = None) -> np.ndarray:
+    """The solo decode of an engine request: its effective sampling
+    params and the engine's key for its rid."""
+    t, k, p = engine.sampling_for(req)
+    return solo_decode(params, cfg, req.prompt, gen, device=device,
+                       eos_id=eos_id, temperature=t, top_k=k, top_p=p,
+                       key=engine.request_key(req.rid))
+
+
 def verify_streams(params, cfg, done: Dict, gen: int, *, device,
-                   eos_id: Optional[int] = None) -> List[int]:
+                   eos_id: Optional[int] = None, engine=None) -> List[int]:
     """rids whose stream differs from its solo decode (or is short of
-    ``gen`` without having hit EOS)."""
+    ``gen`` without having hit EOS).  With ``engine`` each request is
+    replayed with its own sampling params and key; without, greedily."""
     bad = []
     for rid, req in sorted(done.items()):
-        want = solo_decode(params, cfg, req.prompt, gen, device=device,
-                           eos_id=eos_id)[:len(req.tokens)]
+        if engine is not None:
+            want = solo_decode_for(engine, params, cfg, req, gen,
+                                   device=device, eos_id=eos_id)
+        else:
+            want = solo_decode(params, cfg, req.prompt, gen, device=device,
+                               eos_id=eos_id)
+        want = want[:len(req.tokens)]
         short_ok = (eos_id is not None and len(req.tokens) >= 1
                     and req.tokens[-1] == eos_id)
         if not np.array_equal(req.tokens, want) or (
@@ -112,22 +145,38 @@ def _sync(device) -> None:
 
 
 def _run_stream(args, cfg, params, device) -> int:
-    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import AdaptiveChunkPolicy, ServingEngine
 
     prompts = stream_prompts(cfg.vocab, requests=args.requests,
                              prompt_len=args.prompt_len,
                              shared_prefix=args.shared_prefix, seed=args.seed)
     lens = np.asarray([len(p) for p in prompts])
     gen = args.gen
+    req_temps = None
+    if args.request_temperatures:
+        req_temps = [float(t) for t in args.request_temperatures.split(",")]
+    policy = None
+    if args.adaptive:      # a geometric ladder topped at --ticks-per-sync
+        top = args.ticks_per_sync
+        policy = AdaptiveChunkPolicy(levels=tuple(sorted(
+            {1, top} | {2 ** k for k in range(10) if 2 ** k < top})))
 
     def build():
         eng = ServingEngine(
             params, cfg, num_slots=args.batch, page_size=args.page_size,
             max_seq_len=int(lens.max()) + gen,
-            ticks_per_sync=args.ticks_per_sync, eos_id=args.eos_id,
-            device=device)
+            ticks_per_sync=args.ticks_per_sync, chunk_policy=policy,
+            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+            eos_id=args.eos_id, seed=args.seed, device=device)
         for i, p in enumerate(prompts):
-            eng.submit(p, gen, arrival=i * args.arrive_every)
+            kw = {}
+            if req_temps is not None:
+                kw["temperature"] = req_temps[i % len(req_temps)]
+            if args.adaptive:
+                kw["priority"] = i % 2
+                if i % 2 == 0:
+                    kw["ttft_target_ticks"] = 2 * args.ticks_per_sync
+            eng.submit(p, gen, arrival=i * args.arrive_every, **kw)
         return eng
 
     build().run()          # warm-up: kernel builds, allocator, libraries
@@ -151,16 +200,163 @@ def _run_stream(args, cfg, params, device) -> int:
           f"hit, {st['pages_shared']} pages mapped instead of prefilled, "
           f"{st['cow_copies']} COW copies; pool free pages after drain: "
           f"{engine.pool.free_pages}")
+    an = engine.analysis_stats()
+    if an["cuda_graphs"]:
+        print(f"  CUDA graphs: {an['captures']} captured variants "
+              f"{an['variants']}, replays {an['replays']}")
+    if args.adaptive:
+        slo = engine.slo_stats()
+        print(f"  slo: chunks_by_ticks={slo['chunks_by_ticks']} "
+              f"shrinks={slo['chunk_shrinks']} grows={slo['chunk_grows']} "
+              f"ttft_misses={slo['ttft_target_misses']} "
+              f"by_priority={slo['by_priority']}")
+        if slo["chunk_shrinks"] < 1:
+            print("stream verify FAILED: adaptive run never shrank a chunk "
+                  "(policy inert)")
+            return 1
+        extra = set(slo["chunks_by_ticks"]) - set(slo["chunk_levels"])
+        if extra:
+            print(f"stream verify FAILED: undeclared chunk lengths "
+                  f"{sorted(extra)} ran")
+            return 1
     if args.shared_prefix and st["hit_requests"] == 0:
         print("stream verify FAILED: shared-prefix run produced no "
               "prefix-cache hits")
         return 1
     bad = verify_streams(params, cfg, done, gen, device=device,
-                         eos_id=args.eos_id)
+                         eos_id=args.eos_id, engine=engine)
     if bad:
         print(f"stream verify FAILED: {len(bad)}/{len(done)} requests diverged")
         return 1
-    print(f"  verify OK: all {len(done)} streams token-identical to solo decode")
+    n_sampled = sum(1 for r in done.values() if engine.sampling_for(r)[0] > 0)
+    print(f"  verify OK: all {len(done)} streams token-identical to solo "
+          f"decode ({n_sampled} sampled, {len(done) - n_sampled} greedy)")
+    return 0
+
+
+def chaos_plan(requests: int):
+    """The seeded fault plan of ``--chaos`` and the rid it poisons:
+    an allocation failure, an index corruption, NaN in one request's
+    pages and a chunk exception."""
+    from repro_torch.serving import (alloc_failure, chunk_exception,
+                                     index_corruption, nan_logit)
+    victim = 1 % requests
+    return [alloc_failure(0), index_corruption(3), nan_logit(6, rid=victim),
+            chunk_exception(9)], victim
+
+
+def serve_chaos(engine, prompts, gen: int):
+    """Add the chaos run's lifecycle extras to a built engine: a request
+    cancelled while queued, one that cannot finish inside its deadline,
+    and three submits past the full queue.  Returns (rid cancelled, rid
+    expiring, rids rejected)."""
+    rid_cancel = engine.submit(prompts[0], gen, arrival=10_000)
+    rid_expire = engine.submit(prompts[-1], gen, arrival=0,
+                               deadline_ticks=max(3, gen // 2))
+    rejected = [engine.submit(prompts[0], gen, arrival=0) for _ in range(3)]
+    engine.cancel(rid_cancel)
+    return rid_cancel, rid_expire, rejected
+
+
+def check_chaos(engine, injector, done, params, cfg, gen: int, *, device,
+                victim: int, rid_cancel: int, rid_expire: int,
+                rejected: Sequence[int], eos_id=None) -> List[str]:
+    """The chaos run's contract; returns the failures (empty if it held).
+    Every request terminal with its planned fate, every fault counter
+    tripped and every planned fault fired, FINISHED streams equal to
+    their solo decode and the partial ones solo-decode prefixes, and the
+    pool drained exactly."""
+    from repro_torch.serving import RequestStatus
+    stats = engine.fault_stats
+    failures = []
+
+    def check(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    check(len(done) == len(engine.requests),
+          f"{len(engine.requests) - len(done)} requests not terminal")
+    check(all(r.terminal for r in engine.requests.values()),
+          "non-terminal request status")
+    check(done[rid_cancel].status is RequestStatus.CANCELLED,
+          f"cancel victim ended {done[rid_cancel].status}")
+    check(done[rid_expire].status is RequestStatus.EXPIRED,
+          f"deadline victim ended {done[rid_expire].status}")
+    for r in rejected:
+        check(done[r].status is RequestStatus.REJECTED,
+              f"overflow submit {r} ended {done[r].status}")
+    check(done[victim].status is RequestStatus.FAILED,
+          f"NaN victim ended {done[victim].status}")
+    for counter in ("guard_trips", "chunk_failures", "alloc_failures",
+                    "index_drops", "rejected", "cancelled", "expired",
+                    "degraded"):
+        check(stats[counter] >= 1, f"counter {counter} never tripped")
+    check(not injector.pending, f"faults never fired: {injector.pending}")
+    for rid, req in sorted(done.items()):
+        if req.status is RequestStatus.REJECTED or len(req.tokens) == 0:
+            continue
+        want = solo_decode_for(engine, params, cfg, req, gen, device=device,
+                               eos_id=eos_id)
+        if req.status is RequestStatus.FINISHED:
+            check(np.array_equal(req.tokens, want),
+                  f"rid {rid}: non-faulted stream diverged from solo")
+        else:
+            check(np.array_equal(req.tokens, want[:len(req.tokens)]),
+                  f"rid {rid} ({req.status.value}): partial tokens are not "
+                  f"a solo-decode prefix")
+    engine.release_prefix_cache()
+    check(engine.pool.free_pages == engine.pool.num_pages - 1,
+          f"pool did not drain: {engine.pool.free_pages}/"
+          f"{engine.pool.num_pages - 1}")
+    check(engine.pool.live_refs() == 0, "dangling page references")
+    return failures
+
+
+def _run_chaos(args, cfg, params, device) -> int:
+    """Serve a stream under every injected fault, a cancel, a deadline and
+    queue-overflow rejects, then hold the engine to its fault contract."""
+    from repro_torch.serving import FaultInjector, ServingEngine
+
+    plen, gen = max(args.prompt_len, 2), max(args.gen, 12)
+    rng = np.random.default_rng(args.seed)
+    lens = rng.integers(max(2, plen // 2), plen + 1, size=args.requests)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in lens]
+
+    def build(injector=None, max_queue=None):
+        eng = ServingEngine(
+            params, cfg, num_slots=args.batch, page_size=args.page_size,
+            max_seq_len=plen + gen, ticks_per_sync=args.ticks_per_sync,
+            eos_id=args.eos_id, seed=args.seed, max_queue=max_queue,
+            fault_injector=injector, device=device)
+        for i, p in enumerate(prompts):
+            eng.submit(p, gen, arrival=i * args.arrive_every)
+        return eng
+
+    build().run()          # warm-up: kernel builds, allocator, libraries
+    plan, victim = chaos_plan(args.requests)
+    inj = FaultInjector(plan, seed=args.seed)
+    engine = build(injector=inj, max_queue=args.requests + 2)
+    rid_cancel, rid_expire, rejected = serve_chaos(engine, prompts, gen)
+    t0 = time.perf_counter()
+    done = engine.run()
+    dt = max(time.perf_counter() - t0, 1e-9)
+    print(f"chaos: {len(done)} requests terminal in {dt:.2f}s on {device} "
+          f"under {len(plan)} injected faults + cancel/deadline/overflow")
+    print(f"  statuses: {sorted((r.rid, r.status.value) for r in done.values())}")
+    print(f"  fault counters: {engine.fault_stats}")
+    print(f"  injector fired: {[(k, t) for k, t, _ in inj.fired]}")
+    failures = check_chaos(engine, inj, done, params, cfg, gen, device=device,
+                           victim=victim, rid_cancel=rid_cancel,
+                           rid_expire=rid_expire, rejected=rejected,
+                           eos_id=args.eos_id)
+    if failures:
+        for f in failures:
+            print(f"  chaos verify FAILED: {f}")
+        return 1
+    print("  verify OK: streams without a fault token-identical to solo "
+          "decode, faulted/cancelled/expired partials are clean prefixes, "
+          "pool drained exactly")
     return 0
 
 
@@ -172,6 +368,10 @@ def _run_static(args, cfg, params, device) -> int:
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=(b, plen)),
                              device=device)
 
+    from repro_torch import prng
+    # the reference draws its sampling key as the last of four splits
+    key = prng.split(prng.PRNGKey(args.seed), 4)[3]
+
     def once():
         caches = init_caches(cfg, b, plen + args.gen, torch.float32, device)
         with torch.no_grad():
@@ -180,7 +380,9 @@ def _run_static(args, cfg, params, device) -> int:
             _sync(device)
             t1 = time.perf_counter()
             toks, _ = lm_generate(params, caches, tok, plen, args.gen, cfg,
-                                  eos_id=args.eos_id)
+                                  temperature=args.temperature,
+                                  top_k=args.top_k, top_p=args.top_p,
+                                  eos_id=args.eos_id, key=key)
             out = toks.cpu().numpy()
         return out, time.perf_counter() - t1
 
@@ -229,6 +431,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--batch", type=int, default=4,
                     help="fixed batch, or decode slots with --stream")
     ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature; 0 = greedy argmax")
+    ap.add_argument("--top-k", type=int, default=None,
+                    help="sample from the k most probable tokens")
+    ap.add_argument("--top-p", type=float, default=None,
+                    help="nucleus sampling probability mass")
+    ap.add_argument("--request-temperatures", type=str, default=None,
+                    metavar="T0,T1,...",
+                    help="[--stream] per-request temperatures cycled over "
+                         "the stream (0 = greedy)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="[--stream] SLO-aware adaptive chunk lengths up to "
+                         "--ticks-per-sync; fails unless a chunk shrank")
+    ap.add_argument("--chaos", action="store_true",
+                    help="serve under a seeded plan of injected faults, a "
+                         "cancel, a deadline and queue rejects; fails unless "
+                         "the engine keeps its fault contract")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -249,6 +468,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"({summ['method']}, feasible={summ['feasible']}); BSR density "
               f"{summ['density']:.2f} ({summ['nnz_blocks']}/"
               f"{summ['total_blocks']} blocks), dispatch={path}")
+    if args.chaos:
+        return _run_chaos(args, cfg, params, device)
     if args.stream:
         return _run_stream(args, cfg, params, device)
     return _run_static(args, cfg, params, device)

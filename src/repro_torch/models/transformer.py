@@ -6,7 +6,11 @@ layers — torch port of ``src/repro/models/transformer.py``.
 (mamba, xLSTM), encoder-decoder stacks and the multi-device MoE
 all-to-all raise until they are ported.  ``lm_prefill``
 (:514) and ``lm_decode`` (:434) run unchanged on packed (BSR) params;
-``lm_generate`` (:727) is the greedy loop as plain Python.
+``lm_generate`` (:727) is the decode loop as plain Python, greedy or
+sampled.  Token selection (``_nucleus_filter`` :643, ``_select_token``
+:665, ``_select_token_rows`` :688) draws its noise from
+:mod:`repro_torch.prng`, the port's bit-exact threefry, so a sampled
+stream can be held against the reference's.
 
 Caches are updated in place and also returned, so callers written
 against the reference's functional signature keep working.
@@ -18,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from .attention import attention_decode, attention_init, attention_prefill, init_kv_cache
@@ -200,18 +205,93 @@ def lm_prefill(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
     return _unembed(params, cfg, x), caches
 
 
+def _ranks(x: torch.Tensor) -> torch.Tensor:
+    """Each entry's position in a stable descending sort of the last
+    axis (ties by index) — ``argsort(argsort(-x))``, with the inverse
+    permutation scattered instead of sorted."""
+    order = torch.argsort(-x, dim=-1, stable=True)
+    pos = torch.arange(x.shape[-1], device=x.device).expand_as(order)
+    return torch.empty_like(order).scatter_(-1, order, pos)
+
+
+def _nucleus_filter(logits: torch.Tensor, top_p) -> torch.Tensor:
+    """Top-p mask: keep the smallest prefix of the probability-sorted
+    vocab whose mass reaches ``top_p`` (at least the top-1 token), the
+    rest to -inf.  The keep set is decided by position after a stable
+    descending sort (ties by vocab id) and scattered back, so tokens
+    tied at the threshold are not all kept.  ``top_p`` is a float or a
+    tensor broadcasting against ``logits[..., :1]``."""
+    order = torch.argsort(-logits, dim=-1, stable=True)
+    srt = torch.gather(logits, -1, order)
+    probs = torch.softmax(srt, dim=-1)
+    keep_sorted = (torch.cumsum(probs, dim=-1) - probs) < top_p
+    keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
+    return torch.where(keep, logits, float("-inf"))
+
+
+def _select_token(logits: torch.Tensor, rng: torch.Tensor, *,
+                  temperature: float, top_k: Optional[int],
+                  top_p: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy argmax (temperature <= 0) or filtered sampling of (B, V)
+    logits with one key ``rng`` (2,).  Returns ((B,) int32 tokens, the
+    advanced key)."""
+    if not temperature or temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32), rng
+    lg = logits.to(torch.float32) / temperature
+    if top_k is not None and 0 < top_k < lg.shape[-1]:
+        lg = torch.where(_ranks(lg) < top_k, lg, float("-inf"))
+    if top_p is not None and top_p < 1.0:
+        lg = _nucleus_filter(lg, top_p)
+    keys = prng.split(rng)
+    return prng.categorical(keys[1], lg).to(torch.int32), keys[0]
+
+
+def _select_token_rows(logits: torch.Tensor, rngs: torch.Tensor,
+                       temperature: torch.Tensor, top_k: torch.Tensor,
+                       top_p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row selection with ``(B,)`` sampling params and ``(B, 2)``
+    keys — each row as :func:`_select_token` would pick it alone, bit
+    for bit: a disabled filter (``top_k`` outside (0, V), ``top_p`` >= 1)
+    selects the unfiltered logits, greedy rows (temperature <= 0) keep
+    their key, sampled rows split theirs exactly once.  Device ops only,
+    no host sync.  Returns ((B,) int32 tokens, advanced keys)."""
+    v = logits.shape[-1]
+    lg = logits.to(torch.float32)
+    greedy = torch.argmax(lg, dim=-1).to(torch.int32)
+    t = temperature.to(torch.float32)
+    k = top_k.to(torch.int64)
+    p = top_p.to(torch.float32)
+    hot = t > 0.0
+    scaled = lg / torch.where(hot, t, torch.ones_like(t))[:, None]
+    kk = torch.where((k > 0) & (k < v), k, torch.full_like(k, v))
+    lk = torch.where(_ranks(scaled) < kk[:, None], scaled, float("-inf"))
+    lp = torch.where((p < 1.0)[:, None], _nucleus_filter(lk, p[:, None]), lk)
+    keys = prng.split(rngs)                                # (B, 2, 2)
+    sampled = prng.categorical(keys[:, 1], lp).to(torch.int32)
+    tok = torch.where(hot, sampled, greedy)
+    return tok, torch.where(hot[:, None], keys[:, 0], rngs.to(torch.int64))
+
+
 @torch.no_grad()
 def lm_generate(params: Dict, caches: List[Dict], first_token: torch.Tensor,
                 start_len, num_tokens: int, cfg: ModelConfig, *,
-                eos_id: Optional[int] = None) -> Tuple[torch.Tensor, List[Dict]]:
-    """Greedy decode of ``num_tokens`` tokens.  Emits the running token
-    before each step (``tokens[:, 0] == first_token``); with ``eos_id``
-    finished rows keep emitting it.  ``start_len`` is a scalar or per-row
-    (B,) cache length.  Returns (tokens (B, num_tokens) int32, caches)."""
+                temperature: float = 0.0, top_k: Optional[int] = None,
+                top_p: Optional[float] = None, eos_id: Optional[int] = None,
+                key: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List[Dict]]:
+    """Decode ``num_tokens`` tokens, greedy (``temperature`` <= 0) or
+    sampled with ``top_k``/``top_p`` from ``key`` (default
+    ``PRNGKey(0)``), the key split once per step as in the reference.
+    Emits the running token before each step (``tokens[:, 0] ==
+    first_token``); with ``eos_id`` finished rows keep emitting it.
+    ``start_len`` is a scalar or per-row (B,) cache length.  Returns
+    (tokens (B, num_tokens) int32, caches)."""
     tok = first_token.to(torch.int32)
     b = tok.shape[0]
     start = torch.as_tensor(start_len, device=tok.device).reshape(-1)
     start = start.expand(b).to(torch.int64)
+    rng = key if key is not None else prng.PRNGKey(0)
+    rng = rng.to(device=tok.device, dtype=torch.int64)
     done = torch.zeros((b,), dtype=torch.bool, device=tok.device)
     out = []
     for i in range(num_tokens):
@@ -220,7 +300,9 @@ def lm_generate(params: Dict, caches: List[Dict], first_token: torch.Tensor,
             done = done | (emit == eos_id)
         out.append(emit)
         logits, caches = lm_decode(params, caches, {"tokens": tok}, start + i, cfg)
-        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        nxt, rng = _select_token(logits[:, -1], rng, temperature=temperature,
+                                 top_k=top_k, top_p=top_p)
+        nxt = nxt[:, None]
         if eos_id is not None:
             nxt = torch.where(done[:, None], torch.full_like(nxt, eos_id), nxt)
         tok = nxt

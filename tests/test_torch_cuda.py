@@ -384,3 +384,115 @@ def test_paged_decode_head_dim_128(card, dtype):
     got = ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen)
     want = paged_attention_decode_plain(q, kn, vn, kp, vp, tbl, clen)
     assert torch.isfinite(got).all() and _rel_err(got, want) <= 2e-5
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's decode chunk as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _smoke_engine_pair(card, arch, *, sampled, adaptive):
+    """Serve the same traffic through an eager and a graphed engine at
+    smoke size (2 layers, head_dim 64 as the paged kernels take, knapsack
+    0.5 at 32x32, fp32; granite at capacity factor 4.0; the final norm
+    scaled by 0.02 so that sampling chooses).  Returns {mode: (engine, [requests by rid per pass],
+    launches per pass)}; each engine serves the traffic twice."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.launch import serve
+    from repro_torch.serving import AdaptiveChunkPolicy, ServingEngine
+    cfg = make_smoke(get_config(arch), n_layers=2, head_dim=64,
+                     capacity_factor=4.0)
+    params, _ = serve.build_params(cfg, seed=0, device=card, pruned=0.5,
+                                   block=(32, 32), min_size=1024)
+    params["final_norm"] = {"scale": params["final_norm"]["scale"] * 0.02}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(4, 12, size=5)]
+    out = {}
+    for graphed in (False, True):
+        eng = ServingEngine(
+            params, cfg, num_slots=3, page_size=4, max_seq_len=24,
+            ticks_per_sync=8 if adaptive else 4,
+            chunk_policy=AdaptiveChunkPolicy((1, 2, 4, 8)) if adaptive else None,
+            device=card, cuda_graphs=graphed)
+        passes, launches = [], []
+        for _ in range(2):
+            first, base = eng._next_rid, eng.tick
+            for i, p in enumerate(prompts):
+                kw = dict(temperature=0.8, top_k=20, top_p=0.9) if (
+                    sampled and i % 2) else {}
+                eng.submit(p, 6, arrival=base + 2 * i, priority=i % 2, **kw)
+            reset_launch_counts()
+            done = eng.run()
+            torch.cuda.synchronize()
+            launches.append(dict(launch_counts))
+            passes.append({r: q for r, q in done.items() if r >= first})
+        out["graphed" if graphed else "eager"] = (eng, passes, launches, params,
+                                                  cfg)
+    return out
+
+
+@pytest.mark.parametrize("arch,sampled,adaptive", [
+    ("qwen1.5-0.5b", False, False), ("qwen1.5-0.5b", True, True),
+    ("granite-moe-1b-a400m", False, False), ("granite-moe-1b-a400m", True, False)])
+def test_graphed_streams_equal_eager_and_solo(card, arch, sampled, adaptive):
+    from repro_torch.launch import serve
+    res = _smoke_engine_pair(card, arch, sampled=sampled, adaptive=adaptive)
+    eng, passes, launches, params, cfg = res["graphed"]
+    _, epasses, elaunches, _, _ = res["eager"]
+    for got, want in zip(passes, epasses):
+        assert {r: q.tokens.tolist() for r, q in got.items()} == \
+            {r: q.tokens.tolist() for r, q in want.items()}
+    # replays count the launches recorded at capture: the same as eager
+    assert launches == elaunches
+    assert launches[1]["paged_attention_decode"] > 0
+    for done in passes:
+        assert not serve.verify_streams(params, cfg, done, 6, device=card,
+                                        engine=eng)
+    an = eng.analysis_stats()
+    levels = (1, 2, 4, 8) if adaptive else (4,)
+    assert an["cuda_graphs"] == 1
+    assert an["captures"] <= 2 * len(levels)
+    assert set(an["variants"]) <= {f"{t}/{s}" for t in levels
+                                   for s in ("greedy", "sampled")}
+    assert sum(an["replays"].values()) > 0
+
+
+def test_graphs_capture_nothing_new_in_steady_state(card):
+    res = _smoke_engine_pair(card, "qwen1.5-0.5b", sampled=True, adaptive=True)
+    eng, passes, _, _, _ = res["graphed"]
+    before = eng.analysis_stats()
+    first = eng._next_rid
+    for rid in sorted(passes[0]):
+        req = eng.requests[rid]
+        eng.submit(req.prompt, req.max_new, arrival=eng.tick + 2 * (rid % 5),
+                   priority=req.priority, temperature=req.temperature,
+                   top_k=req.top_k, top_p=req.top_p)
+    eng.run()
+    after = eng.analysis_stats()
+    assert after["variants"] == before["variants"]
+    assert sum(after["replays"].values()) > sum(before["replays"].values())
+    assert after["sync_regions"]["decode_chunk"] - \
+        before["sync_regions"]["decode_chunk"] == \
+        sum(after["replays"].values()) - sum(before["replays"].values())
+    assert eng._next_rid > first
+
+
+def test_replays_run_without_a_host_sync(card):
+    """A replay runs under sync-debug "error": a hidden sync would raise
+    (GraphFailure); one that does not is what the engine counts on."""
+    from repro_torch.serving import ChunkGraphs, GraphFailure
+    x = torch.zeros(4, device=card)
+
+    def fn(packed, ticks, sampled):
+        return packed + ticks
+
+    g = ChunkGraphs(fn, 8, card)
+    assert (g(np.arange(8, dtype=np.int32), 3, False) == np.arange(8) + 3).all()
+    assert (g(np.arange(8, dtype=np.int32), 3, False) == np.arange(8) + 3).all()
+    assert g.stats()["replays"] == {"3/greedy": 1}
+
+    def syncing(packed, ticks, sampled):
+        return packed + int(x.sum())        # a host read inside the chunk
+
+    with pytest.raises(GraphFailure):
+        ChunkGraphs(syncing, 8, card)(np.zeros(8, np.int32), 1, False)

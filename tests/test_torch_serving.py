@@ -11,6 +11,7 @@ its stream smoke to exit 0.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs import make_smoke as jmake_smoke
@@ -25,6 +26,16 @@ from repro_torch.launch import serve
 from repro_torch.serving import NULL_PAGE, PagePool, Request, Scheduler, ServingEngine
 
 _CACHE = {}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    # under pytest-xdist, torch's intra-op threads contend with the other
+    # workers' and slow the engine runs here many times over
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def test_page_pool_alloc_free_recycle():
@@ -158,3 +169,14 @@ def test_serve_stream_smoke_exits_zero(capsys):
                        "--gen", "6", "--shared-prefix"]) == 0
     out = capsys.readouterr().out
     assert "verify OK" in out and "prefix cache: 3/4" in out
+
+
+@pytest.mark.parametrize("mode", [
+    ["--stream", "--adaptive", "--request-temperatures", "0,0.8"],
+    ["--chaos"],
+])
+def test_serve_adaptive_and_chaos_smokes_exit_zero(capsys, mode):
+    # the launcher's default traffic (6 requests, 32 tokens each)
+    assert serve.main(["--arch", "qwen1.5-0.5b", "--device", "cpu", "--smoke",
+                       *mode]) == 0
+    assert "verify OK" in capsys.readouterr().out
