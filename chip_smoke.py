@@ -79,6 +79,29 @@ Phases, any failure ends the run with a non-zero exit code:
    contexts (qwen's heads, B 4, page sizes 8 and 16, cache_len 512 and
    2048), and the timer's floor (a one-element add).
 
+5. (run before phase 4) the training entry point's code
+   (``repro_torch.launch.train``) on full-width qwen1.5-0.5b in its own
+   dtypes (bf16 params and activations, fp32 AdamW master weights, each
+   layer recomputed in the backward pass): 20 steps at B 8, S 128 under
+   ``warmup_cosine(3e-4, 3, 20)``, gated on finite losses whose last 5
+   average below the first 5; an asynchronous checkpoint at step 10 and
+   a fresh trainer resumed from it, its step-11 loss within 1e-2
+   relative of the uninterrupted run's; Algorithm 2 (constant steps of
+   0.1 to 0.5, tolerance 0.05, 128x128 tiles over the attention and MLP
+   weights, 10 fine-tune steps per iteration), gated on an iteration
+   with pruned structures; the survivors packed to BSR and
+   ``lm_forward`` on them held against the masked dense params (an fp32
+   copy within 1e-3 of the largest |logit|, bf16 reported) with exactly
+   7 x 24 BSR launches per forward; 4 requests served from the packed
+   fp32 params through ``ServingEngine``, every stream equal to solo
+   ``lm_generate``, with exact launch counts.  Reported: ms per step,
+   tok/s, the card's busy share over two profiled steps,
+   ``torch.cuda.max_memory_allocated``, seconds per pruner iteration
+   (knapsack, fine-tune), and in phase 4 the BSR kernel at the packed
+   forward's M = B * S = 1024 (fp32 and bf16) beside ``torch.matmul`` on
+   the masked dense weight.  The launch counts of this path are zeroed
+   before each of its segments and summed after.
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository beside it, the script exits non-zero and prints
 no result.  Details go to ``build/chip_smoke.json``.
@@ -1319,6 +1342,269 @@ def serving_runs(torch, dev, gpu_line, paths):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: train, knapsack-prune (Algorithm 2), pack and serve qwen1.5-0.5b
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(arch="qwen1.5-0.5b", steps=20, batch=8, seq=128, lr=3e-4,
+             seed=0, ckpt_every=10, target=0.5)
+
+
+def counted(segments, name, fn):
+    """Run ``fn`` with the launch counts set to 0 just before and read
+    just after; the counts go to ``segments[name]``."""
+    from repro_torch.kernels import _build
+    import torch
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    segments[name] = dict(_build.launch_counts)
+    return out
+
+
+def training_busy(torch, step_fn, state, pipe, steps=(10, 11)):
+    """Wall ms per step and the card's busy share over two more training
+    steps run on a copy of the trained state (the step is functional:
+    the trainer's state is not advanced)."""
+    def run():
+        st = state
+        for s in steps:
+            st, m = step_fn(st, pipe.batch_at(s))
+        float(m["total_loss"])
+    run()                                           # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = device_busy(torch, run, wall)
+    busy["wall_ms_per_step"] = wall * 1e3 / len(steps)
+    return busy
+
+
+def train_path(torch, dev, gpu_line):
+    """The training entry point's code (``repro_torch.launch.train``) on
+    full-width qwen1.5-0.5b in its own dtypes (bf16 params and
+    activations, fp32 AdamW master, remat per layer): 20 steps at B 8, S
+    128 with an asynchronous checkpoint at step 10; a fresh trainer
+    resumed from it; Algorithm 2 at 128x128 tiles over the attention and
+    MLP weights; the survivors packed to BSR; ``lm_forward`` packed
+    against masked dense (fp32 copy gated, bf16 reported) with exact BSR
+    launch counts; 4 requests served from the fp32 packed params through
+    ``ServingEngine``, each stream equal to solo ``lm_generate``.
+    Returns (report, {dtype: Capture of the packed forward}, launches)."""
+    import math
+    import shutil
+    import types
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import count_zero_structures
+    from repro_torch.core.masks import map_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm_forward
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sparse import pack_params, sparsity_summary
+
+    t_phase = time.perf_counter()
+    arch = TRAIN["arch"]
+    cfg = get_config(arch)
+    n_layers = cfg.n_layers
+    ckpt_dir = OUT / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    segments, rep = {}, {"arch": arch, "config": {
+        k: getattr(cfg, k) for k in ("param_dtype", "activ_dtype", "remat")},
+        "train": dict(TRAIN)}
+
+    def build():
+        return launch_train.build_trainer(
+            cfg, steps=TRAIN["steps"], batch=TRAIN["batch"], seq=TRAIN["seq"],
+            lr=TRAIN["lr"], seed=TRAIN["seed"], device=dev,
+            ckpt_dir=str(ckpt_dir), ckpt_every=TRAIN["ckpt_every"], log_every=1)
+
+    # --- 1. training --------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    trainer, pipe, opt_cfg = build()
+    t0 = time.perf_counter()
+    res = counted(segments, "train", trainer.run)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["total_loss"] for r in res["metrics"]]
+    dts = [r["dt"] for r in res["metrics"]]
+    if len(losses) != TRAIN["steps"] or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training: losses {losses}")
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not last5 < first5:
+        raise AssertionError(f"training: mean of the last 5 losses {last5:.4f} "
+                             f"is not below the first 5's {first5:.4f}")
+    step_ms = statistics.median(dts[1:]) * 1e3
+    tok = TRAIN["batch"] * TRAIN["seq"]
+    busy = training_busy(torch, trainer.step_fn, trainer.state, pipe)
+    rep["training"] = dict(losses=losses, step_seconds=dts, seconds=train_s,
+                           ms_per_step_median=step_ms,
+                           tok_per_s=tok / (step_ms / 1e3),
+                           peak_bytes=peak, device=busy,
+                           stragglers=res["stragglers"])
+    share = busy["busy_share"]
+    log(f"  training: {TRAIN['steps']} steps at B {TRAIN['batch']} S "
+        f"{TRAIN['seq']}, loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+        f"first 5 {first5:.4f}, last 5 {last5:.4f}); {step_ms:.1f} ms per "
+        f"step (median, steps 1-19) = {tok / (step_ms / 1e3):.0f} tok/s; "
+        f"step 0 {dts[0]:.2f}s; card busy "
+        + (f"{100 * share:.1f}% of {busy['wall_ms_per_step']:.1f} ms per "
+           f"profiled step" if isinstance(share, float) else
+           f"not measured ({busy.get('error')})")
+        + f"; torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; on "
+        f"{gpu_line}")
+    if isinstance(share, float):
+        for row in busy["top"][:5]:
+            log(f"    {row['ms']:9.3f} ms {row['calls']:6d} calls  {row['name']}")
+
+    # --- 2. checkpoint at 10 and resume -------------------------------------
+    steps_saved = trainer.ckpt.committed_steps()
+    if 10 not in steps_saved:
+        raise AssertionError(f"no committed checkpoint at step 10: {steps_saved}")
+    for s in steps_saved:                   # resume from step 10 alone
+        if s != 10:
+            shutil.rmtree(trainer.ckpt._step_dir(s))
+    t0 = time.perf_counter()
+    again, _, _ = build()
+    again.cfg.total_steps = 11
+    res2 = counted(segments, "resume", again.run)
+    resume_s = time.perf_counter() - t0
+    got = res2["metrics"][0]["total_loss"] if res2["metrics"] else float("nan")
+    rel = abs(got - losses[10]) / abs(losses[10])
+    rep["resume"] = dict(step=res2["metrics"][0]["step"] if res2["metrics"] else None,
+                         loss=got, uninterrupted=losses[10], rel_diff=rel,
+                         seconds=resume_s)
+    if not (res2["metrics"] and res2["metrics"][0]["step"] == 10 and rel <= 1e-2):
+        raise AssertionError(f"resume: step-11 loss {got} vs uninterrupted "
+                             f"{losses[10]} (relative {rel:.3g} > 1e-2)")
+    log(f"  checkpoint: written asynchronously at step 10 (committed "
+        f"{steps_saved}); a fresh trainer resumed from it: step-11 loss "
+        f"{got:.6f} vs {losses[10]:.6f} uninterrupted (relative {rel:.2e}); "
+        f"{resume_s:.1f}s")
+    del again
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # --- 3. Algorithm 2 -------------------------------------------------------
+    t0 = time.perf_counter()
+    params, masks, logs, structures, pruner = counted(
+        segments, "prune", lambda: launch_train.prune(
+            trainer.state["params"], cfg, pipe, opt_cfg, lr=TRAIN["lr"],
+            target=TRAIN["target"]))
+    prune_s = time.perf_counter() - t0
+    del trainer
+    if not any(lg.structure_sparsity > 0 for lg in logs):
+        raise AssertionError("Algorithm 2 logged no iteration with "
+                             "structure_sparsity > 0")
+    rolled_back = count_zero_structures(masks, structures)[0] == 0
+    note = ""
+    if rolled_back:
+        s0 = pruner.config.schedule(np.zeros(2), 0)
+        masks, _ = pruner.prune_step(params, s0)
+        note = (f"; the run rolled back to no pruning, so the pack uses "
+                f"prune_step at the first scheduled sparsity {s0.tolist()}")
+    iters = [dict(iteration=lg.iteration, sparsity=lg.sparsity.tolist(),
+                  metric=lg.metric, structure_sparsity=lg.structure_sparsity,
+                  weight_sparsity=lg.weight_sparsity, seconds=lg.seconds,
+                  knapsack_seconds=lg.knapsack_seconds,
+                  finetune_seconds=lg.finetune_seconds,
+                  knapsack_method=lg.knapsack_method,
+                  reduction=lg.reduction().tolist()) for lg in logs]
+    rep["prune"] = dict(iterations=iters, seconds=prune_s, rolled_back=rolled_back,
+                        structures=structures.total_structures)
+    for it in iters:
+        log(f"  prune it={it['iteration']} s={it['sparsity']} metric "
+            f"{it['metric']:.4f} structs {100 * it['structure_sparsity']:.1f}% "
+            f"({it['knapsack_method']}): {it['seconds']:.2f}s = knapsack "
+            f"{it['knapsack_seconds']:.3f}s + fine-tune "
+            f"{it['finetune_seconds']:.2f}s + eval/report")
+    log(f"  Algorithm 2 over {structures.total_structures} tiles of 128x128: "
+        f"{len(logs)} iterations in {prune_s:.1f}s{note}; on {gpu_line}")
+
+    # --- 4. packed against masked dense ---------------------------------------
+    ev = pipe.batch_at(10_000)
+    cfg32 = cfg.replace(param_dtype="float32", activ_dtype="float32")
+    p32 = map_tree(lambda t: t.float(), params)
+    m32 = map_tree(lambda t: None if t is None else t.float(), masks)
+    packed32 = pack_params(p32, m32, structures)
+    packed16 = pack_params(params, masks, structures)
+    summ = sparsity_summary(packed32)
+    want_bsr = PER_LAYER[arch]["bsr_matmul"] * n_layers
+    forwards = {}
+    for name, pk, dense_p, mk, c in (("fp32", packed32, p32, m32, cfg32),
+                                     ("bf16", packed16, params, masks, cfg)):
+        # the masked dense forward runs no BSR kernel: the segment's
+        # bsr_matmul launches are the packed forward's
+        err = counted(segments, f"packed_forward_{name}",
+                      lambda: launch_train.packed_forward_error(
+                          pk, dense_p, mk, ev, c))
+        n = segments[f"packed_forward_{name}"]["bsr_matmul"]
+        if n != want_bsr:
+            raise AssertionError(f"packed lm_forward ({name}): bsr_matmul "
+                                 f"launched {n} times, not {want_bsr}")
+        forwards[name] = dict(err, bsr_launches=n)
+        if not err["finite"]:
+            raise AssertionError(f"packed lm_forward ({name}): non-finite logits")
+    if forwards["fp32"]["max_abs_diff"] > 1e-3 * forwards["fp32"]["max_abs_logit"]:
+        raise AssertionError(f"packed vs masked dense lm_forward (fp32): "
+                             f"{forwards['fp32']}")
+    rep["packed"] = dict(summary={k: v for k, v in summ.items() if k != "per_path"},
+                         forward=forwards)
+    log(f"  packed: {summ['nnz_blocks']}/{summ['total_blocks']} tiles live "
+        f"(density {summ['density']:.4f}); lm_forward packed vs masked dense at "
+        f"B {TRAIN['batch']} S {TRAIN['seq']}: fp32 max |diff| "
+        f"{forwards['fp32']['max_abs_diff']:.3g} of max |logit| "
+        f"{forwards['fp32']['max_abs_logit']:.4g} (gate 1e-3 of it), bf16 "
+        f"{forwards['bf16']['max_abs_diff']:.3g} of "
+        f"{forwards['bf16']['max_abs_logit']:.4g} (reported); bsr_matmul "
+        f"{want_bsr} = 7 x {n_layers} launches per forward in each")
+
+    # --- 5. serve the packed result -------------------------------------------
+    prompts, gen = traffic(cfg.vocab, TRAIN["seed"])[:4], 16
+    eng = ServingEngine(packed32, cfg32, num_slots=4, page_size=8,
+                        max_seq_len=max(len(p) for p in prompts) + gen,
+                        ticks_per_sync=4, device=dev)
+    run = serve_pass(torch, eng, prompts, gen)
+    segments["serve"] = run["launches"]
+    gate_launches(arch, "trained+pruned serve", n_layers, run)
+    solo = {rid: types.SimpleNamespace(tokens=serve.solo_decode(
+        packed32, cfg32, r.prompt, gen, device=dev)) for rid, r in run["done"].items()}
+    same_streams(f"{arch} trained+pruned: served vs solo lm_generate",
+                 run["done"], solo)
+    rep["serve"] = public(run)
+    log(f"  served {len(prompts)} requests from the packed fp32 params: "
+        f"{run['tok_per_s']:.1f} tok/s, {run['decode_ticks']} ticks, every "
+        f"stream equal to solo lm_generate; exact launch counts; on {gpu_line}")
+    del eng
+
+    # the kernels' inputs at the packed forward's shapes (M = B * S), for
+    # phase 4; these launches are not counted
+    caps = {}
+    for name, pk, c in (("fp32", packed32, cfg32), ("bf16", packed16, cfg)):
+        with Capture(torch, ops) as cap, torch.no_grad():
+            lm_forward(pk, ev, c)
+        caps[name] = cap
+    launches = {}
+    for counts in segments.values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for name in ("bsr_matmul", "paged_attention_decode", "paged_attention_prefill"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"phase 5: kernel {name} never launched")
+    rep["launches"] = launches
+    rep["launches_by_segment"] = segments
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 5 launches {launches}; took {rep['seconds']:.1f}s")
+    del params, masks, p32, m32, packed32, packed16
+    torch.cuda.empty_cache()
+    return rep, caps, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -1644,7 +1930,8 @@ def timings(torch, dev, caps, launches):
     for path, cap in caps.items():
         rows += time_bsr(torch, timer, path, cap)
         rows += time_planes(torch, timer, path, cap)
-        rows += time_decode(torch, timer, path, cap.decode[1])
+        if cap.decode is not None:
+            rows += time_decode(torch, timer, path, cap.decode[1])
         rows += time_prefill(torch, timer, path, cap)
     rows += time_prefill(torch, timer, "qwen1.5-0.5b, long prompts",
                          long_prompts(torch, dev))
@@ -1770,15 +2057,25 @@ def main() -> int:
         del p[4]
     torch.cuda.empty_cache()
 
+    log(f"phase 5: train, knapsack-prune (Algorithm 2), pack and serve "
+        f"{TRAIN['arch']} at full width")
+    train_rep, train_caps, train_launches = train_path(torch, dev, gpu_line)
+    log(f"  phase 5 done at {time.perf_counter() - t_start:.1f}s")
+
     log("phase 4: kernel times at the main paths' shapes (CUDA events)")
-    kernels = timings(torch, dev, {a: p[2] for a, p in paths.items()},
-                      {a: p[3] for a, p in paths.items()})
+    caps = {a: p[2] for a, p in paths.items()}
+    launches = {a: p[3] for a, p in paths.items()}
+    train_name = f"{TRAIN['arch']} trained+pruned"
+    launches[train_name] = train_launches
+    for dtype, cap in train_caps.items():
+        caps[f"{train_name}, lm_forward {dtype}"] = cap
+    kernels = timings(torch, dev, caps, launches)
 
     REPORT.update(gpu=gpu_line, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=secs,
                   main_paths={a: {"fp32": p[0], "config_dtype": p[1]}
                               for a, p in paths.items()},
-                  serving=serving,
+                  serving=serving, train_path=train_rep,
                   kernels=kernels, seconds=time.perf_counter() - t_start)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

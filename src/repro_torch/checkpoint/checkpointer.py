@@ -1,0 +1,190 @@
+"""Checkpointing: atomic and asynchronous, torch port of
+``src/repro/checkpoint/checkpointer.py``.
+
+Layout per step::
+
+    <dir>/step_<n>.tmp/            (write in progress)
+    <dir>/step_<n>/
+        meta.json                  paths, shapes, dtypes, step
+        leaf_00000.npy ...         one file per tree leaf (host numpy)
+        COMMITTED                  commit marker (written last)
+
+Contract:
+
+* writes go to a ``.tmp`` dir, the commit marker is written, then the
+  dir is renamed atomically, so a crash mid-save never corrupts the
+  latest checkpoint and ``latest_step`` only returns committed steps;
+* ``save_async`` copies the leaves to the host, then writes on a worker
+  thread, so the training loop waits only for the device-to-host copy;
+* ``keep`` bounds disk use (the oldest committed steps are removed);
+* ``restore`` puts every leaf on the device of the matching leaf of
+  ``target`` and checks its dtype.
+
+The reference writes its meta with msgpack; here it is JSON (no
+dependency beyond the standard library).  numpy has no bfloat16, so a
+bf16 leaf is stored as its 16 bits (``int16``) with ``"bfloat16"`` as
+its dtype in the meta, and read back bit for bit.  Leaves are taken in
+the reference's pytree order (dict keys sorted, lists in order; ``None``
+is no leaf).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.structures import iter_leaves
+
+__all__ = ["Checkpointer"]
+
+_BITS_AS = {torch.bfloat16: torch.int16}
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype in _BITS_AS:
+        t = t.view(_BITS_AS[t.dtype])
+    return t.cpu().numpy()
+
+
+def _from_host(a: np.ndarray, dtype_name: str) -> torch.Tensor:
+    t = torch.from_numpy(a)
+    if dtype_name == "bfloat16":
+        t = t.view(torch.bfloat16)
+    return t
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _rebuild(target: Any, by_path: Dict[str, torch.Tensor], prefix: str = ""):
+    """``target``'s structure with each leaf replaced by ``by_path`` under
+    the path ``iter_leaves`` gives it."""
+    if isinstance(target, dict):
+        return {k: _rebuild(v, by_path, f"{prefix}{k}/") for k, v in target.items()}
+    if isinstance(target, (list, tuple)):
+        out = [_rebuild(v, by_path, f"{prefix}{i}/") for i, v in enumerate(target)]
+        return out if isinstance(target, list) else tuple(out)
+    if target is None:
+        return None
+    return by_path[prefix[:-1]]
+
+
+class Checkpointer:
+    def __init__(self, directory: str, *, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+
+    # -- inspection ----------------------------------------------------------
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:010d}")
+
+    def committed_steps(self) -> List[int]:
+        steps = []
+        for name in os.listdir(self.directory):
+            full = os.path.join(self.directory, name)
+            if name.startswith("step_") and not name.endswith(".tmp"):
+                if os.path.exists(os.path.join(full, "COMMITTED")):
+                    steps.append(int(name.split("_")[1]))
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.committed_steps()
+        return steps[-1] if steps else None
+
+    # -- save ------------------------------------------------------------------
+
+    def save(self, step: int, state: Any, *, blocking: bool = True) -> None:
+        # serialize with any in-flight async save: two writers racing on
+        # the same step dir turn rmtree/makedirs into FileExists/NotFound
+        self.wait()
+        pairs = list(iter_leaves(state))
+        paths = [p for p, _ in pairs]
+        dtypes = [_dtype_name(t) for _, t in pairs]
+        # device->host snapshot (the only part that must block the loop)
+        host = [_to_host(t) for _, t in pairs]
+
+        def write():
+            tmp = self._step_dir(step) + ".tmp"
+            final = self._step_dir(step)
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)       # stale .tmp from a crashed writer
+            os.makedirs(tmp, exist_ok=True)
+            meta = {
+                "step": step,
+                "paths": paths,
+                "shapes": [list(h.shape) for h in host],
+                "dtypes": dtypes,
+            }
+            for i, h in enumerate(host):
+                np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), h, allow_pickle=False)
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(meta, f)
+            with open(os.path.join(tmp, "COMMITTED"), "w") as f:
+                f.write("ok")
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            self._gc()
+
+        if blocking:
+            write()
+        else:
+            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread.start()
+
+    def save_async(self, step: int, state: Any) -> None:
+        self.save(step, state, blocking=False)
+
+    def wait(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            self._thread.join()
+
+    def _gc(self) -> None:
+        steps = self.committed_steps()
+        for s in steps[: -self.keep] if self.keep > 0 else []:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+
+    # -- restore ---------------------------------------------------------------
+
+    def restore(self, step: Optional[int] = None, *, target: Any = None) -> Any:
+        """Load a committed checkpoint.
+
+        ``target``: a tree whose structure the leaves are put back into,
+        each leaf on the device of ``target``'s leaf at the same path.
+        Without it: {"step", "leaves" (CPU tensors), "paths"}."""
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no committed checkpoints in {self.directory}")
+        d = self._step_dir(step)
+        if not os.path.exists(os.path.join(d, "COMMITTED")):
+            raise FileNotFoundError(f"checkpoint step {step} not committed")
+        with open(os.path.join(d, "meta.json")) as f:
+            meta = json.load(f)
+        host = [_from_host(np.load(os.path.join(d, f"leaf_{i:05d}.npy")), dt)
+                for i, dt in enumerate(meta["dtypes"])]
+        if target is None:
+            return {"step": meta["step"], "leaves": host, "paths": meta["paths"]}
+        want = list(iter_leaves(target))
+        if [p for p, _ in want] != meta["paths"]:
+            raise ValueError(
+                f"target has {len(want)} leaves, checkpoint {len(host)}, or "
+                "their paths differ")
+        by_path = {}
+        for (path, proto), h in zip(want, host):
+            if h.dtype != proto.dtype or tuple(h.shape) != tuple(proto.shape):
+                raise ValueError(
+                    f"{path}: checkpoint {h.dtype}{tuple(h.shape)} != target "
+                    f"{proto.dtype}{tuple(proto.shape)}")
+            by_path[path] = h.to(proto.device)
+        return _rebuild(target, by_path)

@@ -1,25 +1,32 @@
-"""Structures and masks over a params tree, torch port.
+"""Structures and masks over a params tree, torch port of
+``src/repro/core/masks.py``.
 
-Counterpart of ``build_structures``, ``masks_from_knapsack``,
-``_get_path`` and ``_set_path`` in ``src/repro/core/masks.py``.  Masks
-mirror the params tree: prunable leaves get a {0,1} mask of the weight's
-shape, dtype and device; every other leaf is ``None``.
+Masks mirror the params tree: prunable leaves get a {0,1} mask of the
+weight's shape, dtype and device; every other leaf is ``None``.  The
+sparsity accounting (``count_zero_structures``, ``sparsity_report``)
+reduces each mask on its own device and brings back only the counts.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .structures import (
     BlockingSpec,
     LayerStructures,
+    StructureInfo,
     block_partition,
+    iter_leaves,
     iter_prunable,
     mask_from_selection,
 )
 
-__all__ = ["build_structures", "masks_from_knapsack", "map_tree"]
+__all__ = [
+    "build_structures", "init_masks", "apply_masks", "masks_from_knapsack",
+    "sparsity_report", "count_zero_structures", "map_tree", "tree_leaves",
+]
 
 
 def build_structures(
@@ -41,15 +48,24 @@ def build_structures(
     return LayerStructures(infos=infos)
 
 
-def map_tree(fn, tree):
-    """Apply ``fn`` to every leaf of nested dicts/lists/tuples."""
+def map_tree(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of nested dicts/lists/tuples.  With
+    ``rest``, trees of the same structure, ``fn`` gets the matching leaf
+    of each (``None`` where a mask tree has no mask)."""
     if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [map_tree(fn, v) for v in tree]
-    if isinstance(tree, tuple):
-        return tuple(map_tree(fn, v) for v in tree)
-    return fn(tree)
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [map_tree(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List[Any]:
+    """Non-``None`` leaves in the reference's pytree order (dict keys
+    sorted, list items in order)."""
+    return [leaf for _, leaf in iter_leaves(tree)]
 
 
 def _get_path(tree: Mapping[str, Any], path: str):
@@ -85,3 +101,68 @@ def masks_from_knapsack(
         m = mask_from_selection(sel, info, device=w.device)
         _set_path(masks, info.path, m.to(w.dtype))
     return masks
+
+
+def init_masks(params: Mapping[str, Any], structures: LayerStructures) -> Dict[str, Any]:
+    """All-ones masks (sparsity 0) shaped like the prunable leaves."""
+    masks = map_tree(lambda _: None, dict(params))
+    for info in structures.infos:
+        w = _get_path(params, info.path)
+        _set_path(masks, info.path, torch.ones(w.shape, dtype=w.dtype,
+                                               device=w.device))
+    return masks
+
+
+def apply_masks(params: Mapping[str, Any], masks: Optional[Mapping[str, Any]]):
+    """Elementwise params * mask where a mask exists."""
+    if masks is None:
+        return params
+    return map_tree(lambda p, m: p if m is None else p * m.to(p.dtype),
+                    dict(params), dict(masks))
+
+
+def count_zero_structures(masks: Mapping[str, Any],
+                          structures: LayerStructures) -> Tuple[int, int]:
+    """(pruned, total) structure counts implied by a mask tree."""
+    pruned = 0
+    for info in structures.infos:
+        sel = _selection_from_mask(_get_path(masks, info.path), info)
+        pruned += int(np.sum(sel == 0))
+    return pruned, structures.total_structures
+
+
+def _selection_from_mask(mask: torch.Tensor, info: StructureInfo) -> np.ndarray:
+    """Per-structure {0,1} int8 selection: 1 where any entry of the tile
+    is nonzero."""
+    k = info.shape[-2] if len(info.shape) >= 2 else 1
+    n = info.shape[-1]
+    m2 = torch.as_tensor(mask).reshape(info.planes, k, n).abs().to(torch.float32)
+    bk, bn = info.blocking.bk, info.blocking.bn
+    pk, pn = info.grid_k * bk - k, info.grid_n * bn - n
+    if pk or pn:
+        m2 = torch.nn.functional.pad(m2, (0, pn, 0, pk))
+    m4 = m2.reshape(info.planes, info.grid_k, bk, info.grid_n, bn)
+    live = m4.sum(dim=(2, 4)) > 0
+    return live.cpu().numpy().astype(np.int8).reshape(-1)
+
+
+def sparsity_report(
+    params: Mapping[str, Any],
+    masks: Mapping[str, Any],
+    structures: LayerStructures,
+) -> Dict[str, float]:
+    """Weight- and structure-level sparsity, global and per-layer."""
+    report: Dict[str, float] = {}
+    zeros = 0
+    total = 0
+    for info in structures.infos:
+        m = _get_path(masks, info.path)
+        z = int((m == 0).sum())
+        t = int(m.numel())
+        report[f"layer/{info.path}"] = z / max(t, 1)
+        zeros += z
+        total += t
+    report["weight_sparsity"] = zeros / max(total, 1)
+    p, t = count_zero_structures(masks, structures)
+    report["structure_sparsity"] = p / max(t, 1)
+    return report

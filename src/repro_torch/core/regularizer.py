@@ -1,0 +1,59 @@
+"""Resource-aware group regularization (paper §III-C, after Wen et al.),
+torch port of ``src/repro/core/regularizer.py``.
+
+A group-lasso penalty whose groups are the hardware resource structures:
+the sum over structures of each structure's L2 norm, scaled by its
+resource cost, so gradient steps shrink whole tiles toward zero together
+and the knapsack's next selection finds near-zero tiles cheap to drop.
+Differentiable through ``structure_norms_dense``.  As in the reference,
+the gradient of a structure whose norm is exactly zero is NaN (the
+derivative of ``sqrt`` at 0); no epsilon is added.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from .masks import _get_path
+from .resource_model import TPUResourceModel
+from .structures import LayerStructures, structure_norms_dense
+
+__all__ = ["group_lasso", "make_regularizer"]
+
+
+def group_lasso(
+    params: Mapping[str, Any],
+    structures: LayerStructures,
+    *,
+    resource_model: Optional[TPUResourceModel] = None,
+    strength: float = 1e-4,
+) -> torch.Tensor:
+    """sum_i  lambda * cost_i * ||w_i||_2 / sqrt(|w_i|)  over structures."""
+    total = None
+    for info in structures.infos:
+        w = _get_path(params, info.path)
+        norms = structure_norms_dense(w, info)  # (planes, gk, gn) fp32
+        if resource_model is not None:
+            cost = float(np.sum(resource_model.structure_cost(info.blocking)))
+        else:
+            cost = 1.0
+        # group-lasso scaling by sqrt(group size): comparable across blockings
+        scale = cost / np.sqrt(info.block_elems)
+        term = float(scale) * torch.sum(norms)
+        total = term if total is None else total + term
+    if total is None:
+        return torch.zeros((), dtype=torch.float32)
+    return strength * total
+
+
+def make_regularizer(structures: LayerStructures, resource_model=None,
+                     strength: float = 1e-4):
+    """params -> scalar penalty."""
+
+    def reg(params):
+        return group_lasso(params, structures, resource_model=resource_model,
+                           strength=strength)
+
+    return reg

@@ -1,15 +1,17 @@
 """Attention + dense-MLP language model stack of the torch port."""
 from .transformer import (
     LayerSpec,
+    cross_entropy_loss,
     init_caches,
     init_params,
     layer_specs,
     lm_decode,
+    lm_forward,
     lm_generate,
     lm_prefill,
 )
 
 __all__ = [
-    "LayerSpec", "init_caches", "init_params", "layer_specs", "lm_decode",
-    "lm_generate", "lm_prefill",
+    "LayerSpec", "cross_entropy_loss", "init_caches", "init_params",
+    "layer_specs", "lm_decode", "lm_forward", "lm_generate", "lm_prefill",
 ]

@@ -12,7 +12,9 @@ assignment), which is what ``donate_argnames`` buys there.
 
 The contiguous branches and ``chunked_causal_attention`` stay plain
 torch — the reference has no kernel there either; the solo-decode check
-of the serving engine runs on them.
+of the serving engine runs on them.  ``attention_apply`` is the
+cache-free training/eval forward (reference :128): it writes no cache,
+so autograd never sees an in-place update.
 """
 from __future__ import annotations
 
@@ -26,9 +28,11 @@ from .layers import apply_rope, dense, dense_init
 
 __all__ = [
     "attention_init",
+    "attention_apply",
     "attention_prefill",
     "attention_decode",
     "chunked_causal_attention",
+    "full_attention",
     "init_kv_cache",
 ]
 
@@ -101,6 +105,12 @@ def chunked_causal_attention(q, k, v, *, causal: bool = True,
     return torch.cat(out, dim=1).reshape(b, s, h, dh)
 
 
+def full_attention(q, k, v, *, causal=True, window=None):
+    """Unchunked oracle (tests)."""
+    return chunked_causal_attention(q, k, v, causal=causal, window=window,
+                                    chunk=q.shape[1])
+
+
 def _wo_project(p: Dict, o: torch.Tensor, num_heads: int, head_dim: int,
                 accum) -> torch.Tensor:
     """Output projection of (B, S, H, dh) attention values (reference
@@ -114,6 +124,36 @@ def _qkv(p, x, num_heads, kv_heads):
     k = _split_heads(dense(p["wk"], x), kv_heads)
     v = _split_heads(dense(p["wv"], x), kv_heads)
     return q, k, v
+
+
+def attention_apply(
+    p: Dict,
+    x: torch.Tensor,                      # (B, S, D)
+    *,
+    num_heads: int,
+    kv_heads: int,
+    head_dim: int,
+    positions: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    window: Optional[int] = None,
+    chunk: int = 512,
+    rope_theta: float = 10000.0,
+    use_rope: bool = True,
+    accum=None,
+) -> torch.Tensor:
+    """Self-attention over the whole sequence with no cache (training,
+    evaluation); differentiable."""
+    accum = accum or torch.float32
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, num_heads, kv_heads)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        q = apply_rope(q, positions, theta=rope_theta)
+        k = apply_rope(k, positions, theta=rope_theta)
+    o = chunked_causal_attention(q, k, v, causal=causal, window=window,
+                                 chunk=chunk)
+    return _wo_project(p, o, num_heads, head_dim, accum)
 
 
 def attention_prefill(

@@ -4,7 +4,11 @@ layers — torch port of ``src/repro/models/transformer.py``.
 ``layer_specs``, ``init_params`` and ``init_caches`` cover stacks of
 ``mixer=attn`` layers with ``mlp=dense`` or ``mlp=moe``; other mixers
 (mamba, xLSTM), encoder-decoder stacks and the multi-device MoE
-all-to-all raise until they are ported.  ``lm_prefill``
+all-to-all raise until they are ported.  ``lm_forward`` (:321) is the
+cache-free training/eval forward, differentiable, with each layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` is not "none" (the
+counterpart of ``_remat_wrap`` :297); ``cross_entropy_loss`` (:366) adds
+the z-loss.  ``lm_forward``, ``lm_prefill``
 (:514) and ``lm_decode`` (:434) run unchanged on packed (BSR) params;
 ``lm_generate`` (:727) is the decode loop as plain Python, greedy or
 sampled.  Token selection (``_nucleus_filter`` :643, ``_select_token``
@@ -18,20 +22,29 @@ against the reference's functional signature keep working.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from .attention import attention_decode, attention_init, attention_prefill, init_kv_cache
+from .attention import (
+    attention_apply,
+    attention_decode,
+    attention_init,
+    attention_prefill,
+    init_kv_cache,
+)
 from .ffn import mlp_apply, mlp_init
 from .layers import embed_init, embed_lookup, rmsnorm, rmsnorm_init, unembed_logits
 from .moe import moe_apply, moe_decode, moe_init
 
 __all__ = [
     "LayerSpec", "layer_specs", "init_params", "init_caches",
+    "lm_forward", "cross_entropy_loss",
     "lm_prefill", "lm_decode", "lm_generate",
 ]
 
@@ -131,6 +144,73 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                           device) for _ in specs]
 
 
+def _accum(cfg: ModelConfig) -> torch.dtype:
+    """Output dtype of the row-parallel matmuls (wo, w_down), reference
+    :115."""
+    return torch.bfloat16 if cfg.row_accum_dtype == "bfloat16" else torch.float32
+
+
+def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm residual layer of ``lm_forward``.  Returns (x, moe_aux)."""
+    h = attention_apply(
+        lp["attn"], rmsnorm(lp["pre_norm"], x),
+        num_heads=cfg.n_heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim_(),
+        positions=positions, window=cfg.window, chunk=cfg.attn_chunk,
+        rope_theta=cfg.rope_theta, use_rope=cfg.use_rope, accum=_accum(cfg))
+    x = x + h
+    if "moe" in lp:
+        y, aux = moe_apply(lp["moe"], rmsnorm(lp["post_norm"], x),
+                           num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.capacity_factor,
+                           activation=cfg.activation)
+        return x + y, aux
+    # the residual rides the w_down epilogue (fused on packed params)
+    x = mlp_apply(lp["mlp"], rmsnorm(lp["post_norm"], x),
+                  activation=cfg.activation, accum=_accum(cfg), residual=x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_forward(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Forward to fp32 logits (B, S, V) over batch["tokens"] (B, S)
+    [, positions], with no cache.  Returns (logits, {"moe_aux": fp32
+    scalar summed over the layers}).  With ``cfg.remat`` other than
+    "none" each layer's activations are recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant)."""
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens, dtype=cfg.adtype)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    layer = functools.partial(_apply_layer, cfg=cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in params["layers"]:
+        if cfg.remat != "none" and torch.is_grad_enabled():
+            x, aux = torch.utils.checkpoint.checkpoint(
+                layer, lp, x, positions, use_reentrant=False)
+        else:
+            x, aux = layer(lp, x, positions)
+        aux_total = aux_total + aux
+    return _unembed(params, cfg, x), {"moe_aux": aux_total}
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       z_loss: float = 1e-4) -> torch.Tensor:
+    """Token-mean cross-entropy of fp32 logits (B, S, V) plus the z-loss
+    ``z_loss * mean(logsumexp^2)``.  The label logit is gathered; the
+    reference's one-hot sum (:378) has a single nonzero term, so the
+    value is the same, without a (B, S, V) one-hot."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss
+
+
 def _unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(params["final_norm"], x)
     return unembed_logits(params.get("lm_head", params["embed"]), x)
@@ -189,7 +269,7 @@ def lm_prefill(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
             num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
             head_dim=cfg.head_dim_(), positions=positions, window=cfg.window,
             chunk=cfg.attn_chunk, rope_theta=cfg.rope_theta,
-            use_rope=cfg.use_rope, page_table=page_tables,
+            use_rope=cfg.use_rope, accum=_accum(cfg), page_table=page_tables,
             start_pos=start_pos)
         x = x + h
         if "moe" in lp:
@@ -201,7 +281,8 @@ def lm_prefill(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
         else:
             # the residual rides the w_down epilogue
             x = mlp_apply(lp["mlp"], rmsnorm(lp["post_norm"], x),
-                          activation=cfg.activation, residual=x)
+                          activation=cfg.activation, accum=_accum(cfg),
+                          residual=x)
     return _unembed(params, cfg, x), caches
 
 

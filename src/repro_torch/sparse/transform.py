@@ -1,7 +1,7 @@
 """Params-tree sparse execution transform, torch port.
 
-Counterpart of ``pack_params`` and ``sparsity_summary`` in
-``src/repro/sparse/transform.py``.  ``pack_params`` replaces each
+Counterpart of ``pack_params``, ``unpack_params`` and
+``sparsity_summary`` in ``src/repro/sparse/transform.py``.  ``pack_params`` replaces each
 prunable 2-D ``kernel`` leaf with a ``BSRWeight`` and each 3-D (expert)
 leaf with a ``BSRPlanes``, packed on the weight's own device, so every
 projection routes through the BSR kernel at ``models/layers.matmul`` and
@@ -12,8 +12,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional
 
+import torch
+
 from repro_torch.core.masks import _get_path, _set_path, build_structures, map_tree
-from repro_torch.core.packing import BSRPlanes, BSRWeight, pack_bsr
+from repro_torch.core.packing import BSRPlanes, BSRWeight, bsr_to_dense, pack_bsr
 from repro_torch.core.structures import (
     PRUNABLE_MIN_SIZE,
     BlockingSpec,
@@ -21,7 +23,7 @@ from repro_torch.core.structures import (
     iter_leaves,
 )
 
-__all__ = ["pack_params", "is_packed_leaf", "sparsity_summary"]
+__all__ = ["pack_params", "unpack_params", "is_packed_leaf", "sparsity_summary"]
 
 
 def is_packed_leaf(x: Any) -> bool:
@@ -63,6 +65,21 @@ def pack_params(
                 shape=tuple(int(s) for s in w.shape))
         _set_path(packed, info.path, leaf)
     return packed
+
+
+def unpack_params(packed: Mapping[str, Any]) -> Dict[str, Any]:
+    """Dense reconstruction of a packed tree, the test oracle: every
+    ``BSRWeight`` / ``BSRPlanes`` leaf becomes the masked dense weight
+    (pruned tiles exactly zero); other leaves pass through."""
+
+    def leaf_fn(x):
+        if isinstance(x, BSRWeight):
+            return bsr_to_dense(x)
+        if isinstance(x, BSRPlanes):
+            return torch.stack([bsr_to_dense(p) for p in x.planes]).reshape(x.shape)
+        return x
+
+    return map_tree(leaf_fn, dict(packed))
 
 
 def sparsity_summary(packed: Mapping[str, Any]) -> Dict[str, Any]:

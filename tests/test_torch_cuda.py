@@ -496,3 +496,54 @@ def test_replays_run_without_a_host_sync(card):
 
     with pytest.raises(GraphFailure):
         ChunkGraphs(syncing, 8, card)(np.zeros(8, np.int32), 1, False)
+
+
+def _smoke_training(device, steps=2):
+    """Two ``make_train_step`` steps of the qwen smoke model from the
+    same CPU-made params and batches, on ``device``."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.core.masks import map_tree
+    from repro_torch.data import TokenTask
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.train import init_train_state, make_train_step
+    cfg = make_smoke(get_config("qwen1.5-0.5b"), remat="dots")
+    params = map_tree(lambda t: t.to(device), init_params(cfg, seed=0, device="cpu"))
+    step = make_train_step(cfg, AdamWConfig(), warmup_cosine(1e-3, 1, 4))
+    state = init_train_state(params, AdamWConfig())
+    losses = []
+    for s in range(steps):
+        batch = {k: v.to(device) for k, v in TokenTask(cfg.vocab).batch(s, 4, 16).items()}
+        state, m = step(state, batch)
+        losses.append([float(m[k]) for k in ("total_loss", "loss")])
+    return np.array(losses)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """The card's step (cuBLAS fp32 matmuls, TF32 off, atomics in the
+    embedding backward) against the CPU's: the 2-step losses within
+    1e-4 (Adam's first update is ~sign(g), so params are not compared
+    element-wise)."""
+    got, want = _smoke_training(card), _smoke_training("cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_packed_lm_forward_on_card_matches_masked_dense(card):
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.core import apply_masks
+    from repro_torch.models import init_params, lm_forward
+    from repro_torch.sparse import knapsack_prune, pack_params
+    cfg = make_smoke(get_config("qwen1.5-0.5b"))
+    params = init_params(cfg, seed=0, device=card)
+    sel = knapsack_prune(params, sparsity=0.5, blocking=BlockingSpec(32, 32),
+                         min_size=1024)
+    packed = pack_params(params, sel.masks, sel.structures)
+    tokens = torch.randint(0, cfg.vocab, (4, 16), device=card,
+                           generator=torch.Generator(device=card).manual_seed(0))
+    reset_launch_counts()
+    with torch.no_grad():
+        got, _ = lm_forward(packed, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        assert launch_counts["bsr_matmul"] == 7 * cfg.n_layers
+        want, _ = lm_forward(apply_masks(params, sel.masks), {"tokens": tokens}, cfg)
+    assert _rel_err(got, want) <= 1e-5

@@ -75,3 +75,15 @@ def test_unported_archs_and_mixers_raise():
     cfg = make_smoke(get_config("granite-moe-1b-a400m"), moe_impl="alltoall")
     with pytest.raises(NotImplementedError, match="alltoall"):
         init_params(cfg, device="cpu")
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from repro_torch.data import LMPipeline, TokenTask
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMPipeline(TokenTask(vocab=16), 2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())          # nothing ran, nothing written

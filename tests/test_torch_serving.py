@@ -9,6 +9,7 @@ with and without a shared prompt prefix — and ``launch.serve`` must run
 its stream smoke to exit 0.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,13 +17,17 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.configs import make_smoke as jmake_smoke
 from repro.core import BlockingSpec as JBlockingSpec
+from repro.models import init_caches as jinit_caches
 from repro.models import init_params as jinit_params
+from repro.models import lm_generate as jlm_generate
+from repro.models import lm_prefill as jlm_prefill
 from repro.serving import ServingEngine as JServingEngine
 from repro.sparse import knapsack_prune as jknapsack_prune
 from repro.sparse import pack_params as jpack_params
 from repro_torch.bridge import params_from_reference
 from repro_torch.configs import get_config, make_smoke
 from repro_torch.launch import serve
+from repro_torch.models import init_caches, lm_generate, lm_prefill
 from repro_torch.serving import NULL_PAGE, PagePool, Request, Scheduler, ServingEngine
 
 _CACHE = {}
@@ -145,6 +150,55 @@ def test_engine_streams_match_reference_engine(ticks, shared_prefix):
     assert streams["torch_joins"] == streams["jax_joins"]
     assert streams["torch_hits"] == streams["jax_hits"]
     assert (streams["torch_hits"] > 0) == shared_prefix
+
+
+@pytest.mark.parametrize("eos", ["2", "hit"])
+def test_eos_generate_and_engine_match_reference(eos):
+    """``eos_id`` in ``lm_generate`` and in the engine's decode chunks
+    against the JAX package.  Token 2 (the launcher's ``--eos-id 2``)
+    never comes up in these random-weight streams, so "hit" takes a
+    token the first stream emits mid-way, which must end it early."""
+    jcfg, cfg, jparams, tparams = _pair()
+    rng = np.random.default_rng(21)
+    prompts = rng.integers(0, cfg.vocab, size=(3, 6)).astype(np.int32)
+    gen = 8
+    jgen = jax.jit(jlm_generate, static_argnames=("num_tokens", "cfg", "eos_id"))
+
+    def generate(eos_id):
+        jc = jinit_caches(jcfg, 3, 6 + gen, jnp.float32)
+        jl, jc = jax.jit(jlm_prefill, static_argnames=("cfg",))(
+            jparams, jc, {"tokens": jnp.asarray(prompts)}, cfg=jcfg)
+        first = np.asarray(jnp.argmax(jl[:, -1], -1))[:, None].astype(np.int32)
+        want, _ = jgen(jparams, jc, jnp.asarray(first), jnp.int32(6),
+                       num_tokens=gen, cfg=jcfg, eos_id=eos_id)
+        tc = init_caches(cfg, 3, 6 + gen, torch.float32, device="cpu")
+        with torch.no_grad():
+            lm_prefill(tparams, tc, {"tokens": torch.from_numpy(prompts)}, cfg)
+        got, _ = lm_generate(tparams, tc, torch.from_numpy(first), 6, gen, cfg,
+                             eos_id=eos_id)
+        return got.numpy(), np.asarray(want)
+
+    eos_id = 2 if eos == "2" else int(generate(None)[1][0, 3])
+    got, want = generate(eos_id)
+    np.testing.assert_array_equal(got, want)
+    if eos == "hit":
+        stop = int(np.argmax(want[0] == eos_id))
+        assert stop < gen - 1 and (want[0, stop:] == eos_id).all()
+    streams = {}
+    for name, engine in (
+            ("jax", JServingEngine(jparams, jcfg, num_slots=2, page_size=4,
+                                   max_seq_len=20, ticks_per_sync=3,
+                                   eos_id=eos_id)),
+            ("torch", ServingEngine(tparams, cfg, num_slots=2, page_size=4,
+                                    max_seq_len=20, ticks_per_sync=3,
+                                    eos_id=eos_id, device="cpu"))):
+        for i, p in enumerate(prompts):
+            engine.submit(p, gen, arrival=i)
+        done = engine.run()
+        streams[name] = [done[i].tokens.tolist() for i in range(len(prompts))]
+    assert streams["torch"] == streams["jax"]
+    if eos == "hit":
+        assert len(streams["torch"][0]) < gen and streams["torch"][0][-1] == eos_id
 
 
 def test_engine_stream_matches_solo_decode_and_drains():
