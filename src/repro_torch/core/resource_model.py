@@ -1,15 +1,18 @@
 """Resource-estimation function R(w) (paper §III-B, Eq. 1), torch port.
 
-A copy of ``TPUResourceModel.structure_cost`` and what it needs from
-``src/repro/core/resource_model.py`` (:48-138).  With the same cost
+A copy of ``TPUResourceModel`` and what it needs from
+``src/repro/core/resource_model.py`` (:48-159).  With the same cost
 vectors the knapsack makes the same selection as the JAX package.  The
 modelled resources are the reference's ``[mxu_passes, hbm_pages]``; an
 H100 ``HardwareSpec`` (tile alignment, HBM capacity) is later work.
+``fpga_dsp_bram`` gives the paper's own FPGA vector ``[DSP, BRAM36]``
+for one structure, which the paper-table experiments price with.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
 import numpy as np
 
@@ -85,3 +88,20 @@ class TPUResourceModel:
 
     def layer_cost(self, info: StructureInfo) -> np.ndarray:
         return self.structure_cost(info.blocking) * info.num_structures
+
+    # -- FPGA mode: the paper's own DSP/BRAM numbers ----------------------
+
+    @staticmethod
+    def fpga_dsp_bram(precision_bits: int, rf: int,
+                      strategy: str = "resource") -> Tuple[float, float]:
+        """The paper's literal resource vector for one structure.
+
+        DSP-aware structure (length RF): 1 DSP, and RF·P bits of BRAM as
+        a fraction of a 36-bit x 1024 BRAM block under the Resource
+        strategy (0 under Latency).  Precisions below 10 bits map the
+        multiplications to LUTs, so 0 DSPs (paper footnote 3)."""
+        dsp = 0.0 if precision_bits < 10 else 1.0
+        if strategy == "latency":
+            return dsp, 0.0
+        bram_bits_per_block = 36.0 * 1024.0
+        return dsp, (rf * precision_bits) / bram_bits_per_block

@@ -547,3 +547,76 @@ def test_packed_lm_forward_on_card_matches_masked_dense(card):
         assert launch_counts["bsr_matmul"] == 7 * cfg.n_layers
         want, _ = lm_forward(apply_masks(params, sel.masks), {"tokens": tokens}, cfg)
     assert _rel_err(got, want) <= 1e-5
+
+
+# the paper experiments' packed FC layouts: (K, N, bk, bn), tiles (RF, 1)
+# and (RF * C, 1), bk 27 over K 96 padded to 4 tiles, LeNet's (50, 1),
+# (24, 1) and (1, 1), and the quickstart's (8, 8)
+PAPER_LAYOUTS = (
+    [(k, n, bk, bn) for k, n in ((16, 64), (64, 32), (32, 32))
+     for bk, bn in ((2, 1), (4, 1), (8, 1), (16, 1), (8, 8))]
+    + [(96, 42, 27, 1), (96, 42, 3, 1), (42, 64, 9, 1), (400, 120, 50, 1),
+       (120, 84, 24, 1), (84, 10, 1, 1)])
+
+
+def _paper_bsr(card, g, k, n, bk, bn):
+    """~40 % of the tiles live, block column 0 all pruned."""
+    w = torch.randn((k, n), generator=g, device=card)
+    alive = torch.rand((-(-k // bk), -(-n // bn)), generator=g, device=card) < 0.4
+    alive[:, 0] = False
+    alive[0, -1] = True
+    mask = alive.repeat_interleave(bk, 0).repeat_interleave(bn, 1)[:k, :n]
+    return pack_bsr(w, BlockingSpec(bk, bn), mask=mask)
+
+
+@pytest.mark.parametrize("k,n,bk,bn", PAPER_LAYOUTS)
+def test_bsr_kernel_paper_layouts(card, k, n, bk, bn):
+    """fp32 at M 1/64/256/2048 with the bias epilogue the paper models
+    use (and relu + residual on one M): within 1e-5 of the plain
+    version, one launch per call, and a row bit-identical alone and
+    inside every M."""
+    g = torch.Generator(device=card).manual_seed(k * 1000 + n + bk)
+    bsr = _paper_bsr(card, g, k, n, bk, bn)
+    x = torch.randn((2048, k), generator=g, device=card)
+    bias = torch.randn(n, generator=g, device=card)
+    res = torch.randn((256, n), generator=g, device=card)
+    alone = ops.bsr_matmul(x[:1], bsr, epilogue=Epilogue(bias=bias))
+    for m in (1, 64, 256, 2048):
+        epi = Epilogue(bias=bias)
+        reset_launch_counts()
+        got = ops.bsr_matmul(x[:m], bsr, epilogue=epi)
+        torch.cuda.synchronize()
+        assert launch_counts["bsr_matmul"] == 1
+        assert _rel_err(got, bsr_matmul_plain(x[:m], bsr, epilogue=epi)) <= 1e-5
+        assert torch.equal(got[:1], alone), f"M {m}"
+    epi = Epilogue(bias=bias, activation="relu", residual=res)
+    assert _rel_err(ops.bsr_matmul(x[:256], bsr, epilogue=epi),
+                    bsr_matmul_plain(x[:256], bsr, epilogue=epi)) <= 1e-5
+
+
+def test_packed_jets_forward_on_card(card):
+    """The jets MLP with fc_1..fc_3 packed at (4, 1) tiles (fc_4, 160
+    weights, stays dense): exactly 3 BSR launches per forward, logits
+    within 1e-5 of the masked dense forward."""
+    from repro_torch.core import apply_masks, build_structures, masks_from_knapsack
+    from repro_torch.models.cnn import init_jets_mlp, jets_mlp_forward
+    params = init_jets_mlp(generator=torch.Generator(device=card).manual_seed(0),
+                           device=card)
+    st = build_structures(params, BlockingSpec(4, 1), min_size=256)
+    sel = (np.random.default_rng(0).uniform(size=st.total_structures) < 0.4
+           ).astype(np.float32)
+    masks = masks_from_knapsack(params, st, sel)
+    packed = dict(params)
+    for info in st.infos:
+        layer = info.path.split("/")[0]
+        packed[layer] = {**params[layer], "kernel": pack_bsr(
+            params[layer]["kernel"], info.blocking, mask=masks[layer]["kernel"])}
+    x = torch.randn((2048, 16), generator=torch.Generator(device=card).manual_seed(1),
+                    device=card)
+    reset_launch_counts()
+    with torch.no_grad():
+        got = jets_mlp_forward(packed, x)
+        torch.cuda.synchronize()
+        assert launch_counts["bsr_matmul"] == 3
+        want = jets_mlp_forward(apply_masks(params, masks), x)
+    assert _rel_err(got, want) <= 1e-5

@@ -40,6 +40,11 @@ def _port_files():
 
 def test_port_imports_neither_jax_nor_reference_package():
     bad = []
+    scanned = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in _port_files()[:-1]}
+    assert {"models/cnn.py", "data/synthetic.py", "core/resource_model.py",
+            "paper/fpga_repro.py", "paper/table2_jets.py", "paper/table3_svhn.py",
+            "paper/table5_lenet.py", "paper/__main__.py", "paper/quickstart.py",
+            "paper/prune_jets.py"} <= scanned
     for path in _port_files():
         for lineno, mod in _imported_modules(path):
             if mod.split(".")[0] in FORBIDDEN:
@@ -87,3 +92,20 @@ def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
         train.main(["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "1",
                     "--ckpt-dir", str(tmp_path)])
     assert not list(tmp_path.iterdir())          # nothing ran, nothing written
+
+
+def test_paper_entry_points_raise_without_a_card(monkeypatch, capsys):
+    from repro_torch.paper import __main__ as paper_main
+    from repro_torch.paper import prune_jets, quickstart, table5_lenet
+    from repro_torch.paper.fpga_repro import run_prune_experiment
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: paper_main.main(["--quick"]),
+                 lambda: quickstart.main([]),
+                 lambda: prune_jets.main(["--rf", "4"]),
+                 lambda: run_prune_experiment(
+                     **table5_lenet.experiments(quick=True)[0][1])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert "name,us_per_call" not in capsys.readouterr().out   # nothing ran
+    with pytest.raises(NotImplementedError, match="knapsack.*not ported"):
+        paper_main.main(["--only", "table2,knapsack", "--device", "cpu"])
