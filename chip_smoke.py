@@ -8,14 +8,17 @@ Phases, any failure ends the run with a non-zero exit code:
 1. the card's name and power limit, torch and CUDA versions; build the
    five hand-written CUDA kernels (one nvcc per source, in parallel);
 2. every kernel against its plain PyTorch version on the card, fp32 and
-   bf16, with the tolerances below (BSR matmul: M 1/4/64/200, the
-   models' weight shapes and an odd one, 128x128 and 32x32 blocks, an
+   bf16, with the tolerances below (BSR matmul: M 1/4/64/200, qwen's
+   weight shapes and an odd one at 128x128 and 32x32 blocks, jamba's
+   (4096 -> 4096/1024/14336, 14336 -> 4096) at 128x128, an
    all-pruned column, every epilogue the models use; BSR planes: E
-   1/3/32, M 1/8/47/200, granite's expert shapes and an odd one, a dead
+   1/3/32, M 1/8/47/200, granite's expert shapes and an odd one, and
+   jamba's 16 experts (4096<->14336, M 2/10/64, 128x128 tiles), a dead
    and a fully dense plane, and with row counts of 0, C and ragged ones,
    one and two segments per plane, a live plane whose counts are all 0,
    rows past the count held to epilogue(0); paged decode and prefill:
-   page sizes 4/8/16, GQA 16/16, 16/8, 8/2, 4/1, ragged lengths
+   head_dim 64 at page sizes 4/8/16, GQA 16/16, 16/8, 8/2, 4/1, and
+   jamba's head_dim 128 at GQA 32/8, page size 8, ragged lengths
    including 0, NaN in every page no row owns, q_offset 0/ps/3ps, and
    decode at an exact chunk boundary and past 8 chunks (1500 cached
    positions) in all four (q, pool) dtype pairs; structure norms: qwen's
@@ -71,8 +74,11 @@ Phases, any failure ends the run with a non-zero exit code:
    TTFT p50, the card's busy share (profiled pass) and the capture
    seconds per variant are reported for eager and graphed;
 4. one ``kernels`` JSON line with all five kernels: launches over the
-   two runs (a), error against the plain version at the main paths'
-   shapes (held to the phase-2 tolerances), the card's busy share over
+   two runs (a) and phase 5 (rows of their own for the paper models'
+   fc_1, launches over phase 6, and for jamba's four kernels at its
+   shapes, launches over phase 7's graphed fp32 pass), error against the
+   plain version at every captured shape of phases 3, 5, 6 and 7 (held
+   to the phase-2 tolerances), the card's busy share over
    each run (a) from ``torch.profiler``, and the kernel's, the plain
    version's and one PyTorch library call's time at the main paths'
    shapes beside the least time the card could take (``bound_ms``), the
@@ -127,6 +133,37 @@ Phases, any failure ends the run with a non-zero exit code:
    reported).  Phase 4 then times the BSR kernel at the three models'
    packed fc_1.
 
+7. (run before phase 4) the recurrent and hybrid stacks through
+   ``ServingEngine`` on phase 3's traffic (8 requests over 4 slots,
+   17-64-token prompts, 16 tokens each, page size 8), with prefix caching
+   gated to be reported off: jamba-v0.1-52b cut to one period of its
+   layer pattern (8 layers: 7 Mamba + 1 attention, 4 dense MLPs + 4 MoE
+   of 16 experts top-2) at full width, built in bf16, knapsack-pruned at
+   0.75 with 128x128 tiles, packed, the dense tree freed; (a) an fp32
+   copy at capacity factor E/k = 8.0, (b) bf16 at the config's 1.25;
+   xlstm-350m whole (24 layers) and dense, (a) fp32, (b) bf16.  The tied
+   embedding is scaled by ``EMBED_SCALE`` (0.01) after init, so that
+   greedy streams follow the layers' state (gated: at least half of each
+   stream's tokens distinct).  Each is served by an eager engine and a
+   graphed one (capturing, steady and profiled passes), gated on exact
+   launch counts in every pass (jamba:
+   each BSR kernel once per packed weight per forward, planes once per
+   packed expert weight per forward, paged decode once per attention
+   layer per tick, paged prefill once per attention layer per
+   admission; xlstm: no kernel at all), every stream finished at full
+   length with finite logits, the graphed streams equal to the eager
+   ones, and in fp32 to their solo decode on a fresh graphed engine:
+   xlstm over 4 slots, jamba over 2 slots (decode routes at
+   ``moe_decode``'s fixed capacity factor 2.0, so an expert holds
+   max(ceil(4 x 2 x 2 / 16), 2) = 2 of 4 rows and a third row routed to
+   it drops, as in the reference; 2 rows never drop).  An eager pass of
+   jamba (a) keeps the kernels' inputs for phase 4, which holds each
+   kernel against its plain version at jamba's shapes.  Reported: tok/s,
+   wall per tick
+   (admissions included), TTFT p50, the card's busy share, the build
+   and pruning seconds, ``torch.cuda.max_memory_allocated`` and the
+   phase's seconds.
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository beside it, the script exits non-zero and prints
 no result.  Details go to ``build/chip_smoke.json``.
@@ -134,6 +171,7 @@ no result.  Details go to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import os
 import statistics
@@ -324,8 +362,8 @@ def check_bsr(torch, dev) -> float:
                     f"{spec}: error {err:.3g} > {TOL[dname(dtype)]}")
             worst = max(worst, err)
 
-    for (k, n) in [(1024, 1024), (1024, 2816), (2816, 1024), (100, 36)]:
-        for (bk, bn) in [(128, 128), (32, 32)]:
+    for shapes, blocks in BSR_SWEEPS:
+        for (k, n), (bk, bn) in itertools.product(shapes, blocks):
             for dtype in (torch.float32, torch.bfloat16):
                 g = torch.Generator(device=dev).manual_seed(1000 + i)
                 w = torch.randn((k, n), generator=g, device=dev).to(dtype)
@@ -349,6 +387,14 @@ def check_bsr(torch, dev) -> float:
         f"{TOL['float32']}, bf16 {TOL['bfloat16']})")
     return worst
 
+
+# BSR sweeps: (K, N) and tiles; qwen's weights and an odd shape at 128x128
+# and 32x32, then jamba-v0.1-52b's wq/wo, wk/wv, up/gate and down at the
+# 128x128 tiles it is served with
+BSR_SWEEPS = ((((1024, 1024), (1024, 2816), (2816, 1024), (100, 36)),
+               ((128, 128), (32, 32))),
+              (((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)),
+               ((128, 128),)))
 
 # (K, N, bk, bn, dense block column, live share): qwen's down projection
 # at 32x32 tiles with one fully dense column (88 live slots, several slot
@@ -511,6 +557,13 @@ def poisoned_pools(torch, g, dev, b, kvh, dh, ps, max_pages, lens, pool_dtype):
     return kp.to(pool_dtype), vp.to(pool_dtype), tbl.to(torch.int32)
 
 
+# paged attention sweeps: head_dim, page sizes, (heads, KV heads); qwen's
+# and granite's head_dim 64 over GQA 1:1 to 4:1, then jamba-v0.1-52b's
+# head_dim 128 at its 32/8 heads and the page size it is served with
+ATTN_SWEEPS = ((64, (4, 8, 16), ((16, 16), (16, 8), (8, 2), (4, 1))),
+               (128, (8,), ((32, 8),)))
+
+
 def check_attention(torch, dev) -> float:
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_attention import (
@@ -518,9 +571,8 @@ def check_attention(torch, dev) -> float:
 
     worst = 0.0
     n_dec = n_pre = 0
-    dh = 64
-    for ps in (4, 8, 16):
-        for h, kvh in ((16, 16), (16, 8), (8, 2), (4, 1)):
+    for dh, page_sizes, heads in ATTN_SWEEPS:
+        for ps, (h, kvh) in itertools.product(page_sizes, heads):
             for dtype in (torch.float32, torch.bfloat16):
                 g = torch.Generator(device=dev).manual_seed(ps * 100 + h + kvh)
                 # decode: ragged cache_len including 0
@@ -537,11 +589,11 @@ def check_attention(torch, dev) -> float:
                 torch.cuda.synchronize()
                 err = rel_err(got, want)
                 REPORT["checks"].append(dict(
-                    kernel="paged_attention_decode", ps=ps, h=h, kvh=kvh,
+                    kernel="paged_attention_decode", dh=dh, ps=ps, h=h, kvh=kvh,
                     dtype=dname(dtype), rel_err=err, ok=err <= ATTN_TOL))
                 if err > ATTN_TOL:
                     raise AssertionError(
-                        f"paged decode ps={ps} H={h} K={kvh} {dname(dtype)}: "
+                        f"paged decode dh={dh} ps={ps} H={h} K={kvh} {dname(dtype)}: "
                         f"error {err:.3g} > {ATTN_TOL}")
                 worst = max(worst, err)
                 n_dec += 1
@@ -564,12 +616,13 @@ def check_attention(torch, dev) -> float:
                     dead_ok = bool((got[1, 5:] == 0).all())
                     ok = err <= ATTN_TOL and dead_ok
                     REPORT["checks"].append(dict(
-                        kernel="paged_attention_prefill", ps=ps, h=h, kvh=kvh,
+                        kernel="paged_attention_prefill", dh=dh, ps=ps, h=h,
+                        kvh=kvh,
                         q_offset=q_offset, dtype=dname(dtype), rel_err=err,
                         ok=ok))
                     if not ok:
                         raise AssertionError(
-                            f"paged prefill ps={ps} H={h} K={kvh} q_offset="
+                            f"paged prefill dh={dh} ps={ps} H={h} K={kvh} q_offset="
                             f"{q_offset} {dname(dtype)}: error {err:.3g}, rows "
                             f"past length zero: {dead_ok}")
                     worst = max(worst, err)
@@ -604,10 +657,14 @@ def random_planes(torch, g, dev, e, k, n, bk, bn, dtype):
 
 # the expert FFN uses none and silu+mult; bias and res cover the rest
 PLANE_EPIS = ["none", "silu+mult", "res", "bias"]
-# planes sweep: E, M, (K, N) (granite's experts_up/gate and experts_down,
-# a ragged one), blocks
-PLANE_SWEEP = ((1, 3, 32), (1, 8, 47, 200),
-               ((1024, 512), (512, 1024), (100, 36)), ((128, 128), (32, 32)))
+# planes sweeps: E, M, (K, N), blocks; granite's experts_up/gate and
+# experts_down and a ragged one, then jamba-v0.1-52b's 16 experts up/gate
+# and down at 128x128 tiles, M its decode capacity (2 rows over 4 slots),
+# its prefill capacity at capacity factor 1.25 and at 8.0 (64-token prompt)
+PLANE_SWEEPS = (((1, 3, 32), (1, 8, 47, 200),
+                 ((1024, 512), (512, 1024), (100, 36)), ((128, 128), (32, 32))),
+                ((16,), (2, 10, 64), ((4096, 14336), (14336, 4096)),
+                 ((128, 128),)))
 # norms sweep: qwen's gate projection, granite's experts_up as (E * K, N)
 # (with bk | K its tiles are the per-plane tiles), a ragged shape; tiles
 NORMS_SWEEP = (((1024, 2816), (32 * 1024, 512), (100, 36)), (128, 32))
@@ -619,37 +676,35 @@ def check_planes(torch, dev) -> float:
 
     worst = 0.0
     i = 0
-    es, ms, shapes, blocks = PLANE_SWEEP
-    for e in es:
-        for (k, n) in shapes:
-            for (bk, bn) in blocks:
-                for dtype in (torch.float32, torch.bfloat16):
-                    g = torch.Generator(device=dev).manual_seed(5000 + i)
-                    planes = random_planes(torch, g, dev, e, k, n, bk, bn, dtype)
-                    for m in ms:
-                        spec = PLANE_EPIS[i % len(PLANE_EPIS)]
-                        i += 1
-                        x = torch.randn((e, m, k), generator=g, device=dev).to(dtype)
-                        epi = make_epilogue(torch, spec, m, n, dtype, g, dev)
-                        if epi is not None:
-                            epi = epi.map_operands(lambda a: torch.randn(
-                                (e, m, n), generator=g, device=dev).to(dtype))
-                        got = ops.bsr_planes_matmul(x, planes, epilogue=epi)
-                        want = bsr_planes_matmul_plain(x, planes, epilogue=epi)
-                        torch.cuda.synchronize()
-                        err = rel_err(got, want)
-                        ok = err <= TOL[dname(dtype)] and got.dtype == dtype
-                        REPORT["checks"].append(dict(
-                            kernel="bsr_planes_matmul", e=e, m=m, k=k, n=n,
-                            bk=bk, bn=bn, dtype=dname(dtype), epilogue=spec,
-                            plane_nnz=list(planes.plane_nnz), rel_err=err,
-                            ok=ok))
-                        if not ok:
-                            raise AssertionError(
-                                f"bsr_planes_matmul E={e} M={m} K={k} N={n} "
-                                f"blocks {bk}x{bn} {dname(dtype)} {spec}: "
-                                f"error {err:.3g} > {TOL[dname(dtype)]}")
-                        worst = max(worst, err)
+    for es, ms, shapes, blocks in PLANE_SWEEPS:
+        for e, (k, n), (bk, bn) in itertools.product(es, shapes, blocks):
+            for dtype in (torch.float32, torch.bfloat16):
+                g = torch.Generator(device=dev).manual_seed(5000 + i)
+                planes = random_planes(torch, g, dev, e, k, n, bk, bn, dtype)
+                for m in ms:
+                    spec = PLANE_EPIS[i % len(PLANE_EPIS)]
+                    i += 1
+                    x = torch.randn((e, m, k), generator=g, device=dev).to(dtype)
+                    epi = make_epilogue(torch, spec, m, n, dtype, g, dev)
+                    if epi is not None:
+                        epi = epi.map_operands(lambda a: torch.randn(
+                            (e, m, n), generator=g, device=dev).to(dtype))
+                    got = ops.bsr_planes_matmul(x, planes, epilogue=epi)
+                    want = bsr_planes_matmul_plain(x, planes, epilogue=epi)
+                    torch.cuda.synchronize()
+                    err = rel_err(got, want)
+                    ok = err <= TOL[dname(dtype)] and got.dtype == dtype
+                    REPORT["checks"].append(dict(
+                        kernel="bsr_planes_matmul", e=e, m=m, k=k, n=n,
+                        bk=bk, bn=bn, dtype=dname(dtype), epilogue=spec,
+                        plane_nnz=list(planes.plane_nnz), rel_err=err,
+                        ok=ok))
+                    if not ok:
+                        raise AssertionError(
+                            f"bsr_planes_matmul E={e} M={m} K={k} N={n} "
+                            f"blocks {bk}x{bn} {dname(dtype)} {spec}: "
+                            f"error {err:.3g} > {TOL[dname(dtype)]}")
+                    worst = max(worst, err)
     log(f"  bsr_planes_matmul: {i} cases OK (dead and fully dense planes), "
         f"worst normalized error {worst:.3g}")
     return worst
@@ -917,7 +972,7 @@ class Capture:
         self.planes = {}
         self.decode = None
         self.prefill = {}
-        self.phase = "prefill"        # of the last attention call
+        self.phase = "prefill"        # of the last BSR or attention call
 
     def __enter__(self):
         torch, ops, orig = self.torch, self.ops, self.orig
@@ -929,6 +984,7 @@ class Capture:
             # one decode-shaped call (B, 1, D) and the longest prompt per
             # weight shape and epilogue
             phase = "decode" if x.ndim == 3 and x.shape[1] == 1 else "prefill"
+            self.phase = phase
             key = (phase, bsr.shape, epilogue_kind(epilogue))
             if key not in self.bsr or x.numel() > self.bsr[key][0].numel():
                 self.bsr[key] = (clone(x), bsr, None if epilogue is None else
@@ -936,7 +992,9 @@ class Capture:
             return orig["bsr_matmul"](x, bsr, epilogue=epilogue)
 
         def bsr_planes_matmul(x, planes, *, epilogue=None, row_counts=None):
-            # the MoE layer runs after its layer's attention call
+            # the MoE layer runs after a BSR or attention call of the same
+            # forward pass (its layer's attention, or jamba's dense MLP
+            # one layer below)
             key = (self.phase, tuple(planes.shape), epilogue_kind(epilogue))
             if key not in self.planes or x.numel() > self.planes[key][0].numel():
                 self.planes[key] = (clone(x), planes, None if epilogue is None
@@ -1961,6 +2019,246 @@ def paper_path(torch, dev, gpu_line):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the recurrent and hybrid stacks through the paged engine
+# ---------------------------------------------------------------------------
+
+# jamba's depth cut: one whole period of its layer pattern (7 Mamba + 1
+# attention, 4 dense MLPs + 4 MoE) at full width; the 32-layer model (~52 B
+# parameters, ~104 GB in bf16) does not fit on one 80 GB card
+JAMBA_LAYERS = 8
+JAMBA_PATH = f"jamba-v0.1-52b {JAMBA_LAYERS} layers (phase 7)"
+# the tied embedding is scaled by this after init: at its init scale the
+# residual stream is the token's own embedding and a greedy stream repeats
+# the prompt's last token, whatever the recurrent state holds (the CPU
+# tests of these stacks scale it by the same constant)
+EMBED_SCALE = 0.01
+# the least share of distinct tokens in every greedy stream of these
+# stacks (gated here and in the CPU tests): a stream that repeats a token
+# or two would equal its solo decode whatever the engine did to its state
+MIN_DISTINCT_SHARE = 0.5
+
+
+def distinct_enough(tokens) -> bool:
+    return len(set(tokens)) >= MIN_DISTINCT_SHARE * len(tokens)
+
+
+def cast_tree(tree, dtype):
+    """A copy of a (packed) params tree with every floating leaf in
+    ``dtype``; packed leaves keep their layout."""
+    import dataclasses
+    from repro_torch.core import BSRPlanes, BSRWeight
+    from repro_torch.core.masks import map_tree
+
+    def leaf(t):
+        if isinstance(t, (BSRWeight, BSRPlanes)):
+            return dataclasses.replace(t, blocks=t.blocks.to(dtype))
+        return t.to(dtype) if t.is_floating_point() else t
+    return map_tree(leaf, tree)
+
+
+def packed_counts(params):
+    """(2-D BSR leaves, planes leaves) of a packed tree: the BSR and
+    planes kernels' launches per forward pass."""
+    from repro_torch.core import BSRPlanes, BSRWeight
+    from repro_torch.core.structures import iter_leaves
+    leaves = [leaf for _, leaf in iter_leaves(params)]
+    return (sum(isinstance(x, BSRWeight) for x in leaves),
+            sum(isinstance(x, BSRPlanes) for x in leaves))
+
+
+def recurrent_engine(dev, params, cfg, prompts, gen, slots, graphed):
+    from repro_torch.serving import ServingEngine
+    return ServingEngine(params, cfg, num_slots=slots, page_size=8,
+                         max_seq_len=max(len(p) for p in prompts) + gen,
+                         ticks_per_sync=4, device=dev, cuda_graphs=graphed)
+
+
+def recurrent_serve(torch, dev, gpu_line, label, params, cfg, prompts, gen, *,
+                    want, solo_slots=None):
+    """Serve the traffic over 4 slots through an eager engine (one pass)
+    and a graphed one (a capturing pass, a steady pass, a profiled pass).
+    Gated: prefix caching reported off, every stream FINISHED at full
+    length (``serve_pass``) with at least ``MIN_DISTINCT_SHARE`` of its
+    tokens distinct, every pass's launches equal to ``want(run)``, the
+    steady graphed streams equal to the eager ones.  With ``solo_slots``
+    a fresh graphed engine of that many slots serves the traffic once
+    more, and its streams must equal their solo decode.  Returns the
+    report."""
+    from repro_torch.launch import serve
+    out, done = {}, {}
+
+    def gated(eng, label):
+        run = serve_pass(torch, eng, prompts, gen)
+        got = {k: run["launches"].get(k, 0) for k in SOURCES}
+        if got != want(run):
+            raise AssertionError(f"{label}: launches {got} != {want(run)}")
+        few = [rid for rid, r in run["done"].items()
+               if not distinct_enough(r.tokens.tolist())]
+        if few:
+            raise AssertionError(f"{label}: streams {few} have fewer than "
+                                 f"{MIN_DISTINCT_SHARE} of their tokens distinct")
+        return run
+
+    for graphed in (False, True):
+        mode = "graphed" if graphed else "eager"
+        eng = recurrent_engine(dev, params, cfg, prompts, gen, 4, graphed)
+        if eng.prefix_stats["enabled"]:
+            raise AssertionError(f"{label}: prefix caching is on for a stack "
+                                 "with recurrent layers")
+        runs = [gated(eng, f"{label} {mode} pass {i + 1}")
+                for i in range(2 if graphed else 1)]
+        steady = runs[-1]
+        busy = None
+        if graphed:
+            busy = device_busy(torch, lambda: serve_pass(torch, eng, prompts, gen),
+                               steady["seconds"])
+            out["captures"] = {k: eng.analysis_stats().get(k) for k in
+                               ("variants", "capture_seconds", "replays")}
+        done[mode] = steady["done"]
+        distinct = sorted(len(set(r.tokens.tolist()))
+                          for r in steady["done"].values())
+        out[mode] = dict(passes=[public(r) for r in runs], device=busy,
+                         distinct_tokens=distinct)
+        share = ("" if busy is None else
+                 f", card busy {100 * busy['busy_share']:.1f}%"
+                 if isinstance(busy["busy_share"], float) else
+                 f", busy share not measured ({busy.get('error')})")
+        log(f"  {label} {mode}: {steady['wall_ms_per_tick']:.2f} ms wall per "
+            f"tick over {steady['decode_ticks']} ticks, {steady['tok_per_s']:.1f}"
+            f" tok/s, TTFT p50 {steady['ttft_ms_p50']:.2f} ms{share}; launches "
+            f"{ {k: v for k, v in steady['launches'].items() if v} }; distinct "
+            f"tokens per stream {distinct} of {gen}")
+    graphed = done["graphed"]
+    shift = min(graphed) - min(done["eager"])
+    same_streams(f"{label} graphed vs eager",
+                 {r - shift: q for r, q in graphed.items()}, done["eager"])
+    if solo_slots is not None:
+        eng = recurrent_engine(dev, params, cfg, prompts, gen, solo_slots, True)
+        run = gated(eng, f"{label} {solo_slots} slots")
+        out[f"graphed_{solo_slots}_slots"] = public(run)
+        t0 = time.perf_counter()
+        bad = serve.verify_streams(params, cfg, run["done"], gen, device=dev)
+        if bad:
+            raise AssertionError(f"{label}, {solo_slots} slots: streams {bad} "
+                                 "differ from solo decode")
+        out["verify_seconds"] = time.perf_counter() - t0
+    log(f"  {label}: graphed streams == eager streams"
+        + ("" if solo_slots is None else
+           f"; over {solo_slots} slots, graphed streams == solo decode")
+        + f" ({len(graphed)} requests); on {gpu_line}")
+    return out
+
+
+def recurrent_path(torch, dev, gpu_line):
+    """Phase 7: jamba-v0.1-52b (one period, full width, knapsack 0.75 at
+    128x128 and packed) and xlstm-350m (whole, dense), each served in
+    fp32 (streams equal eager, graphed and solo; exact launch counts) and
+    in bf16 (full-length streams, finite logits).  Returns (report,
+    launches of jamba's graphed fp32 steady pass, the kernels' inputs
+    captured from an eager pass of jamba (a))."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import BlockingSpec
+    from repro_torch.kernels import ops
+    from repro_torch.core.structures import iter_leaves
+    from repro_torch.models import init_params
+    from repro_torch.sparse import knapsack_prune, pack_params, sparsity_summary
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen, seed, rep = 16, 0, {}
+
+    # jamba: build in bf16, prune, pack, free the dense tree
+    base = get_config("jamba-v0.1-52b").replace(n_layers=JAMBA_LAYERS)
+    prompts = traffic(base.vocab, seed)
+    t0 = time.perf_counter()
+    params = init_params(base, seed=seed, device=dev)
+    params["embed"]["embedding"].mul_(EMBED_SCALE)
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    sel = knapsack_prune(params, sparsity=0.75, blocking=BlockingSpec(128, 128),
+                         min_size=4096)
+    torch.cuda.synchronize()
+    t_prune = time.perf_counter() - t0 - t_init
+    packed = pack_params(params, sel.masks, sel.structures)
+    summ = sparsity_summary(packed)
+    kept, total = sel.kept, sel.total
+    del params, sel
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    build = dict(init_s=t_init, knapsack_s=t_prune,
+                 pack_s=time.perf_counter() - t0 - t_init - t_prune,
+                 seconds=time.perf_counter() - t0, params=n_params,
+                 kept=kept, structures=total, density=summ["density"],
+                 memory_gb=torch.cuda.memory_allocated() / 1e9)
+    n_bsr, n_planes = packed_counts(packed)
+    n_attn = sum(m == "attn" for m in base.mixer_pattern)
+    log(f"  jamba-v0.1-52b, {JAMBA_LAYERS} layers at full width: {n_params} "
+        f"params in {base.param_dtype}; init {t_init:.1f}s, knapsack {t_prune:.1f}s, pack "
+        f"{build['pack_s']:.1f}s ({build['seconds']:.1f}s); kept {kept}/{total}"
+        f" structures, BSR density {summ['density']:.4f}; {n_bsr} BSR weights "
+        f"+ {n_planes} planes per forward; {build['memory_gb']:.1f} GB on the "
+        f"card after freeing the dense tree")
+
+    def jamba_launches(run):
+        passes = run["decode_ticks"] + run["admissions"]
+        return {"bsr_matmul": n_bsr * passes,
+                "bsr_planes_matmul": n_planes * passes,
+                "paged_attention_decode": n_attn * run["decode_ticks"],
+                "paged_attention_prefill": n_attn * run["admissions"],
+                "structure_norms": 0}
+
+    # prefills route at capacity factor E/k, where no slot drops; decode
+    # routes at moe_decode's fixed 2.0: capacity max(ceil(n k 2 / E), k) =
+    # 2 rows per expert, so over 4 slots a third row routed to one expert
+    # drops (as in the reference) and only 2 slots decode as solo does
+    moe = base.moe_experts / base.moe_top_k
+    cfg_a = base.replace(param_dtype="float32", activ_dtype="float32",
+                         capacity_factor=moe)
+    params_a = cast_tree(packed, torch.float32)
+    # the kernels' inputs at jamba's shapes for phase 4, from an eager
+    # pass (the capture reads lengths back to the host)
+    with Capture(torch, ops) as cap:
+        serve_pass(torch, recurrent_engine(dev, params_a, cfg_a, prompts, gen,
+                                           4, False), prompts, gen)
+    rep["jamba_a"] = recurrent_serve(
+        torch, dev, gpu_line, f"jamba (a) fp32, capacity factor {moe}", params_a,
+        cfg_a, prompts, gen, want=jamba_launches, solo_slots=2)
+    launches = rep["jamba_a"]["graphed"]["passes"][-1]["launches"]
+    del params_a
+    torch.cuda.empty_cache()
+    rep["jamba_b"] = recurrent_serve(
+        torch, dev, gpu_line, f"jamba (b) bf16, capacity factor "
+        f"{base.capacity_factor}", packed, base, prompts, gen,
+        want=jamba_launches)
+    rep["jamba_build"] = build
+    del packed
+    torch.cuda.empty_cache()
+
+    # xlstm-350m: whole, dense (the serving pruner matches none of it)
+    base = get_config("xlstm-350m")
+    prompts = traffic(base.vocab, seed)
+    none = lambda run: {k: 0 for k in SOURCES}          # no kernel on its path
+    for key, cfg, solo_slots in (
+            ("xlstm_fp32", base.replace(param_dtype="float32",
+                                        activ_dtype="float32"), 4),
+            ("xlstm_bf16", base, None)):
+        params = init_params(cfg, seed=seed, device=dev)
+        params["embed"]["embedding"].mul_(EMBED_SCALE)
+        rep[key] = recurrent_serve(torch, dev, gpu_line,
+                                   f"xlstm-350m {cfg.param_dtype}", params, cfg,
+                                   prompts, gen, want=none,
+                                   solo_slots=solo_slots)
+        del params
+        torch.cuda.empty_cache()
+    rep["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 7: jamba build + knapsack + pack {build['seconds']:.1f}s; "
+        f"max memory allocated {rep['max_memory_allocated_gb']:.1f} GB; took "
+        f"{rep['seconds']:.1f}s; on {gpu_line}")
+    return rep, launches, cap
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -2272,11 +2570,13 @@ SOURCES = {
 }
 
 
-def timings(torch, dev, caps, launches, paper_launches):
+def timings(torch, dev, caps, launches, paper_launches, jamba_launches):
     """Every kernel at the captured shapes of each path; returns the
     ``kernels`` line (one headline shape per kernel, launches summed
-    over the paths' runs (a) and phase 5, then ``bsr_matmul`` at the
-    paper models' packed fc_1, launches over phase 6)."""
+    over the paths' runs (a) and phase 5; then ``bsr_matmul`` at the
+    paper models' packed fc_1, launches over phase 6; then the four
+    kernels of jamba's path at its shapes, launches over its graphed
+    fp32 pass in phase 7)."""
     from repro_torch.kernels import _build
     timer = Timer(dev)
     one = torch.zeros(1, device=dev)
@@ -2306,21 +2606,34 @@ def timings(torch, dev, caps, launches, paper_launches):
             log(f"  ptxas {name}: {line}")
 
     def pick(name, **want):
-        cands = [r for r in rows if r["name"] == name]
+        cands = [r for r in rows if r["name"] == name
+                 and r.get("path") == want.get("path", r.get("path"))]
         for r in cands:
             if all(r.get(k) == v for k, v in want.items()):
                 return r
         return max(cands, key=lambda r: r["ms"])
+
+    def longest_prefill(path):
+        return max((r for r in rows if r["name"] == "paged_attention_prefill"
+                    and r["path"] == path), key=lambda r: r["s"])
 
     heads = [
         # the largest decode call of each path's BSR kernels
         pick("bsr_matmul", path="qwen1.5-0.5b", phase="decode", k=1024, n=2816,
              epilogue="silu+mult"),
         pick("paged_attention_decode", path="granite-moe-1b-a400m"),
-        max((r for r in rows if r["name"] == "paged_attention_prefill"
-             and r["path"] == "granite-moe-1b-a400m"), key=lambda r: r["s"]),
+        longest_prefill("granite-moe-1b-a400m"),
         pick("bsr_planes_matmul", phase="decode", k=1024, n=512, epilogue="none"),
         pick("structure_norms"),
+    ]
+    # jamba's decode-tick calls of the up/gate shapes, its attention layer
+    jamba_heads = [
+        pick("bsr_matmul", path=JAMBA_PATH, phase="decode", k=4096, n=14336,
+             epilogue="silu+mult"),
+        pick("bsr_planes_matmul", path=JAMBA_PATH, phase="decode", k=4096,
+             n=14336, epilogue="none"),
+        pick("paged_attention_decode", path=JAMBA_PATH),
+        longest_prefill(JAMBA_PATH),
     ]
     paper_heads = []
     for path, k, n in PAPER_TIMED:
@@ -2333,7 +2646,9 @@ def timings(torch, dev, caps, launches, paper_launches):
     out = []
     for r, counts in ([(r, launches) for r in heads]
                       + [(r, {"paper (phase 6)": paper_launches})
-                         for r in paper_heads]):
+                         for r in paper_heads]
+                      + [(r, {JAMBA_PATH: jamba_launches})
+                         for r in jamba_heads]):
         src, rep = SOURCES[r["name"]]
         by_path = {p: n.get(r["name"], 0) for p, n in counts.items()}
         out.append(dict(name=r["name"], route="cuda", source=src, replaces=rep,
@@ -2438,6 +2753,13 @@ def main() -> int:
     paper_rep, paper_caps, paper_launches = paper_path(torch, dev, gpu_line)
     log(f"  phase 6 done at {time.perf_counter() - t_start:.1f}s")
 
+    log("phase 7: the recurrent and hybrid stacks through the paged engine: "
+        f"jamba-v0.1-52b ({JAMBA_LAYERS} layers, one period, full width, "
+        "knapsack 0.75 at 128x128) and xlstm-350m (whole, dense)")
+    recurrent_rep, recurrent_launches, recurrent_cap = recurrent_path(
+        torch, dev, gpu_line)
+    log(f"  phase 7 done at {time.perf_counter() - t_start:.1f}s")
+
     log("phase 4: kernel times at the main paths' shapes (CUDA events)")
     caps = {a: p[2] for a, p in paths.items()}
     launches = {a: p[3] for a, p in paths.items()}
@@ -2446,13 +2768,16 @@ def main() -> int:
     for dtype, cap in train_caps.items():
         caps[f"{train_name}, lm_forward {dtype}"] = cap
     caps.update(paper_caps)
-    kernels = timings(torch, dev, caps, launches, paper_launches)
+    caps[JAMBA_PATH] = recurrent_cap
+    kernels = timings(torch, dev, caps, launches, paper_launches,
+                      recurrent_launches)
 
     REPORT.update(gpu=gpu_line, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=secs,
                   main_paths={a: {"fp32": p[0], "config_dtype": p[1]}
                               for a, p in paths.items()},
                   serving=serving, train_path=train_rep, paper_path=paper_rep,
+                  recurrent_path=recurrent_rep,
                   kernels=kernels, seconds=time.perf_counter() - t_start)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

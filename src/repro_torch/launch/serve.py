@@ -17,7 +17,11 @@ temperatures through the stream.  Every stream is then verified
 token-identical to its solo decode through ``lm_prefill`` +
 ``lm_generate`` on contiguous caches, a sampled one with the engine's
 key for its request.  The run exits 1 on any divergence or, with
-``--shared-prefix``, on zero prefix hits.
+``--shared-prefix``, on zero prefix hits (where prefix caching is on: it
+is off for stacks with recurrent layers, jamba-v0.1-52b and xlstm-350m).
+``--pruned`` prunes the attention, MLP and MoE weights, as the
+reference's serving pruner does; on xlstm-350m, which has none of them,
+it raises the reference's ``ValueError``.
 
 ``--adaptive`` picks each chunk's length with the SLO-aware policy over
 the levels 1, 2, 4, .. up to ``--ticks-per-sync``, with alternating
@@ -196,10 +200,14 @@ def _run_stream(args, cfg, params, device) -> int:
           f"TTFT p50 {1e3 * float(np.median(ttft)):.2f} ms, slot "
           f"utilization {engine.slot_utilization:.2f}")
     st = engine.prefix_stats
-    print(f"  prefix cache: {st['hit_requests']}/{st['lookups']} admissions "
-          f"hit, {st['pages_shared']} pages mapped instead of prefilled, "
-          f"{st['cow_copies']} COW copies; pool free pages after drain: "
-          f"{engine.pool.free_pages}")
+    if st["enabled"]:
+        print(f"  prefix cache: {st['hit_requests']}/{st['lookups']} admissions "
+              f"hit, {st['pages_shared']} pages mapped instead of prefilled, "
+              f"{st['cow_copies']} COW copies; pool free pages after drain: "
+              f"{engine.pool.free_pages}")
+    else:
+        print(f"  prefix cache: off (recurrent layers); pool free pages after "
+              f"drain: {engine.pool.free_pages}")
     an = engine.analysis_stats()
     if an["cuda_graphs"]:
         print(f"  CUDA graphs: {an['captures']} captured variants "
@@ -219,7 +227,7 @@ def _run_stream(args, cfg, params, device) -> int:
             print(f"stream verify FAILED: undeclared chunk lengths "
                   f"{sorted(extra)} ran")
             return 1
-    if args.shared_prefix and st["hit_requests"] == 0:
+    if args.shared_prefix and st["enabled"] and st["hit_requests"] == 0:
         print("stream verify FAILED: shared-prefix run produced no "
               "prefix-cache hits")
         return 1

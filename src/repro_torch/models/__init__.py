@@ -1,4 +1,5 @@
-"""Attention + dense-MLP language model stack of the torch port."""
+"""Decoder stacks of the torch port: attention, Mamba and xLSTM mixers with
+dense-MLP, MoE or no MLP."""
 from .transformer import (
     LayerSpec,
     cross_entropy_loss,

@@ -1,4 +1,4 @@
-"""Primitive layers: dense, rmsnorm, embeddings, rotary — torch port.
+"""Primitive layers: dense, rmsnorm, layernorm, embeddings, rotary — torch port.
 
 Counterpart of ``src/repro/models/layers.py``.  Params are nested dicts
 of tensors with the reference's leaf names ("kernel", "bias", "scale",
@@ -26,6 +26,7 @@ from repro_torch.kernels.epilogue import apply_epilogue, make_epilogue
 
 __all__ = [
     "matmul", "expert_matmul", "dense", "dense_init", "rmsnorm", "rmsnorm_init",
+    "layernorm", "layernorm_init",
     "embed_init", "embed_lookup", "unembed_logits",
     "rope_frequencies", "apply_rope", "truncated_normal",
 ]
@@ -113,6 +114,22 @@ def rmsnorm(p, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm_init(dim: int, dtype, device) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias_vec": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """fp32 statistics (biased variance, as ``jnp.var``), the result cast
+    back to x's dtype (reference :149-159)."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].to(torch.float32) + p["bias_vec"].to(torch.float32)
+    return y.to(x.dtype)
 
 
 def embed_init(vocab: int, dim: int, *, generator, device,

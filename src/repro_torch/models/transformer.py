@@ -1,11 +1,13 @@
-"""Decoder stack for attention language models with dense-MLP or MoE
-layers — torch port of ``src/repro/models/transformer.py``.
+"""Decoder stack — torch port of ``src/repro/models/transformer.py``.
 
-``layer_specs``, ``init_params`` and ``init_caches`` cover stacks of
-``mixer=attn`` layers with ``mlp=dense`` or ``mlp=moe``; other mixers
-(mamba, xLSTM), encoder-decoder stacks and the multi-device MoE
-all-to-all raise until they are ported.  ``lm_forward`` (:321) is the
-cache-free training/eval forward, differentiable, with each layer under
+``layer_specs`` cycles ``cfg.mixer_pattern`` (attn | mamba | mlstm |
+slstm) and ``cfg.mlp_pattern`` (dense | moe | none) over the layers, as
+the reference does, so one function set serves attention LMs, MoE LMs,
+the Mamba/attention/MoE hybrid (jamba) and the xLSTM stack; norms are
+rmsnorm or layernorm.  M-RoPE, encoder-decoder stacks, logit softcap and
+the multi-device MoE all-to-all raise until they are ported
+(``_check_ported``).  ``lm_forward`` (:321) is the cache-free
+training/eval forward, differentiable, with each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat`` is not "none" (the
 counterpart of ``_remat_wrap`` :297); ``cross_entropy_loss`` (:366) adds
 the z-loss.  ``lm_forward``, ``lm_prefill``
@@ -16,8 +18,10 @@ sampled.  Token selection (``_nucleus_filter`` :643, ``_select_token``
 :mod:`repro_torch.prng`, the port's bit-exact threefry, so a sampled
 stream can be held against the reference's.
 
-Caches are updated in place and also returned, so callers written
-against the reference's functional signature keep working.
+Caches (``init_caches`` :391) are K/V for attention layers and the
+recurrent state for the others; they are updated in place and also
+returned, so callers written against the reference's functional
+signature keep working.
 """
 from __future__ import annotations
 
@@ -39,8 +43,29 @@ from .attention import (
     init_kv_cache,
 )
 from .ffn import mlp_apply, mlp_init
-from .layers import embed_init, embed_lookup, rmsnorm, rmsnorm_init, unembed_logits
+from .layers import (
+    embed_init,
+    embed_lookup,
+    layernorm,
+    layernorm_init,
+    rmsnorm,
+    rmsnorm_init,
+    unembed_logits,
+)
+from .mamba import init_mamba_cache, mamba_apply, mamba_decode, mamba_init, mamba_prefill
 from .moe import moe_apply, moe_decode, moe_init
+from .xlstm import (
+    init_mlstm_cache,
+    init_slstm_cache,
+    mlstm_apply,
+    mlstm_decode,
+    mlstm_init,
+    mlstm_prefill,
+    slstm_apply,
+    slstm_decode,
+    slstm_init,
+    slstm_prefill,
+)
 
 __all__ = [
     "LayerSpec", "layer_specs", "init_params", "init_caches",
@@ -75,16 +100,16 @@ def _check_ported(cfg: ModelConfig) -> List[LayerSpec]:
             f"{cfg.name}: encoder-decoder stacks are not ported to torch yet")
     if cfg.mrope_sections is not None:
         raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported to torch yet")
-    if cfg.norm_type != "rmsnorm":
+    if cfg.norm_type not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(f"{cfg.name}: {cfg.norm_type} is not ported yet")
     if cfg.logits_softcap:
         raise NotImplementedError(f"{cfg.name}: logit softcap is not ported yet")
     specs = layer_specs(cfg)
     for spec in specs:
-        if spec.mixer != "attn":
+        if spec.mixer not in ("attn", "mamba", "mlstm", "slstm"):
             raise NotImplementedError(
                 f"{cfg.name}: mixer {spec.mixer!r} is not ported to torch yet")
-        if spec.mlp not in ("dense", "moe"):
+        if spec.mlp not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: mlp {spec.mlp!r} is not ported to torch yet")
     if cfg.moe_impl == "alltoall" and any(sp.mlp == "moe" for sp in specs):
@@ -92,6 +117,28 @@ def _check_ported(cfg: ModelConfig) -> List[LayerSpec]:
             f"{cfg.name}: moe_impl='alltoall' (expert-parallel all-to-all "
             "across devices) is not ported to torch yet")
     return specs
+
+
+def _norm_init(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
+    init = layernorm_init if cfg.norm_type == "layernorm" else rmsnorm_init
+    return init(cfg.d_model, cfg.dtype, device)
+
+
+def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    return layernorm(p, x) if cfg.norm_type == "layernorm" else rmsnorm(p, x)
+
+
+def _init_mixer(spec: LayerSpec, cfg: ModelConfig, kw) -> Dict:
+    if spec.mixer == "attn":
+        return {"attn": attention_init(cfg.d_model, cfg.n_heads, cfg.kv_heads,
+                                       cfg.head_dim_(), qkv_bias=cfg.qkv_bias, **kw)}
+    if spec.mixer == "mamba":
+        return {"mamba": mamba_init(cfg.d_model, d_state=cfg.d_state,
+                                    d_conv=cfg.d_conv, **kw)}
+    if spec.mixer == "mlstm":
+        return {"mlstm": mlstm_init(cfg.d_model, cfg.n_heads,
+                                    proj_factor=cfg.mlstm_proj_factor, **kw)}
+    return {"slstm": slstm_init(cfg.d_model, cfg.n_heads, **kw)}
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
@@ -105,43 +152,51 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     gen = generator
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(seed)
-    dt, hd = cfg.dtype, cfg.head_dim_()
+    kw = dict(generator=gen, device=device, dtype=cfg.dtype)
     params: Dict[str, Any] = {
-        "embed": embed_init(cfg.vocab, cfg.d_model, generator=gen,
-                            device=device, dtype=dt),
+        "embed": embed_init(cfg.vocab, cfg.d_model, **kw),
         "layers": [],
-        "final_norm": rmsnorm_init(cfg.d_model, dt, device),
+        "final_norm": _norm_init(cfg, device),
     }
     for spec in specs:
-        layer = {
-            "pre_norm": rmsnorm_init(cfg.d_model, dt, device),
-            "attn": attention_init(cfg.d_model, cfg.n_heads, cfg.kv_heads, hd,
-                                   generator=gen, device=device,
-                                   qkv_bias=cfg.qkv_bias, dtype=dt),
-            "post_norm": rmsnorm_init(cfg.d_model, dt, device),
-        }
+        layer = {"pre_norm": _norm_init(cfg, device), **_init_mixer(spec, cfg, kw)}
+        if spec.mlp != "none":
+            layer["post_norm"] = _norm_init(cfg, device)
         if spec.mlp == "moe":
             layer["moe"] = moe_init(cfg.d_model, cfg.d_ff, cfg.moe_experts,
-                                    generator=gen, device=device,
-                                    gated=cfg.gated_mlp, dtype=dt)
-        else:
-            layer["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, generator=gen,
-                                    device=device, gated=cfg.gated_mlp, dtype=dt)
+                                    gated=cfg.gated_mlp, **kw)
+        elif spec.mlp == "dense":
+            layer["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp, **kw)
         params["layers"].append(layer)
     if not cfg.tie_embeddings:
-        params["lm_head"] = embed_init(cfg.vocab, cfg.d_model, generator=gen,
-                                       device=device, dtype=dt)
+        params["lm_head"] = embed_init(cfg.vocab, cfg.d_model, **kw)
     return params
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.float32, device=None) -> List[Dict]:
-    """Contiguous per-layer K/V caches (B, alloc, K, dh)."""
+    """Per-layer caches (reference :391): contiguous K/V (B, alloc, K,
+    dh) for attention layers, the recurrent state for the others (Mamba's
+    conv window in ``dtype``, every other state fp32)."""
     device = resolve_device(device)
     specs = _check_ported(cfg)
     alloc = max_len if cfg.window is None else min(max_len, cfg.window)
-    return [init_kv_cache(batch, alloc, cfg.kv_heads, cfg.head_dim_(), dtype,
-                          device) for _ in specs]
+    caches = []
+    for spec in specs:
+        if spec.mixer == "attn":
+            caches.append(init_kv_cache(batch, alloc, cfg.kv_heads,
+                                        cfg.head_dim_(), dtype, device))
+        elif spec.mixer == "mamba":
+            caches.append(init_mamba_cache(batch, 2 * cfg.d_model, cfg.d_state,
+                                           cfg.d_conv, dtype, device))
+        elif spec.mixer == "mlstm":
+            d_in = int(cfg.mlstm_proj_factor * cfg.d_model)
+            d_in -= d_in % cfg.n_heads
+            caches.append(init_mlstm_cache(batch, cfg.n_heads,
+                                           d_in // cfg.n_heads, device))
+        else:
+            caches.append(init_slstm_cache(batch, cfg.d_model, device))
+    return caches
 
 
 def _accum(cfg: ModelConfig) -> torch.dtype:
@@ -150,25 +205,47 @@ def _accum(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.row_accum_dtype == "bfloat16" else torch.float32
 
 
+def _mlp(lp: Dict, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor, *,
+         decode: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's MLP half on the residual stream x.  Returns (x, the
+    MoE aux loss or None)."""
+    if spec.mlp == "none":
+        return x, None
+    xn = _norm(cfg, lp["post_norm"], x)
+    if spec.mlp == "dense":
+        # the residual rides the w_down epilogue (fused on packed params)
+        return mlp_apply(lp["mlp"], xn, activation=cfg.activation,
+                         accum=None if decode else _accum(cfg), residual=x), None
+    kw = dict(num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+              activation=cfg.activation)
+    if decode:
+        y, aux = moe_decode(lp["moe"], xn, **kw)
+    else:
+        y, aux = moe_apply(lp["moe"], xn, capacity_factor=cfg.capacity_factor, **kw)
+    return x + y, aux
+
+
 def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                 spec: LayerSpec, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm residual layer of ``lm_forward``.  Returns (x, moe_aux)."""
-    h = attention_apply(
-        lp["attn"], rmsnorm(lp["pre_norm"], x),
-        num_heads=cfg.n_heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim_(),
-        positions=positions, window=cfg.window, chunk=cfg.attn_chunk,
-        rope_theta=cfg.rope_theta, use_rope=cfg.use_rope, accum=_accum(cfg))
-    x = x + h
-    if "moe" in lp:
-        y, aux = moe_apply(lp["moe"], rmsnorm(lp["post_norm"], x),
-                           num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
-                           capacity_factor=cfg.capacity_factor,
-                           activation=cfg.activation)
-        return x + y, aux
-    # the residual rides the w_down epilogue (fused on packed params)
-    x = mlp_apply(lp["mlp"], rmsnorm(lp["post_norm"], x),
-                  activation=cfg.activation, accum=_accum(cfg), residual=x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    xn = _norm(cfg, lp["pre_norm"], x)
+    if spec.mixer == "attn":
+        h = attention_apply(
+            lp["attn"], xn,
+            num_heads=cfg.n_heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim_(),
+            positions=positions, window=cfg.window, chunk=cfg.attn_chunk,
+            rope_theta=cfg.rope_theta, use_rope=cfg.use_rope, accum=_accum(cfg))
+    elif spec.mixer == "mamba":
+        h = mamba_apply(lp["mamba"], xn, chunk=cfg.ssm_chunk)
+    elif spec.mixer == "mlstm":
+        h = mlstm_apply(lp["mlstm"], xn, num_heads=cfg.n_heads, chunk=cfg.ssm_chunk)
+    else:
+        h = slstm_apply(lp["slstm"], xn, num_heads=cfg.n_heads)
+    x, aux = _mlp(lp, spec, cfg, x + h)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def lm_forward(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
@@ -178,16 +255,16 @@ def lm_forward(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     scalar summed over the layers}).  With ``cfg.remat`` other than
     "none" each layer's activations are recomputed in the backward pass
     (``torch.utils.checkpoint``, non-reentrant)."""
-    _check_ported(cfg)
+    specs = _check_ported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, dtype=cfg.adtype)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    layer = functools.partial(_apply_layer, cfg=cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in params["layers"]:
+    for lp, spec in zip(params["layers"], specs):
+        layer = functools.partial(_apply_layer, spec=spec, cfg=cfg)
         if cfg.remat != "none" and torch.is_grad_enabled():
             x, aux = torch.utils.checkpoint.checkpoint(
                 layer, lp, x, positions, use_reentrant=False)
@@ -212,34 +289,35 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
 
 
 def _unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rmsnorm(params["final_norm"], x)
+    x = _norm(cfg, params["final_norm"], x)
     return unembed_logits(params.get("lm_head", params["embed"]), x)
 
 
 def lm_decode(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
               cache_len, cfg: ModelConfig) -> Tuple[torch.Tensor, List[Dict]]:
     """One-token decode.  batch["tokens"] (B, 1); with
-    batch["page_tables"] (B, max_pages) the caches are page pools.
-    Returns (fp32 logits (B, 1, V), caches)."""
+    batch["page_tables"] (B, max_pages) the attention caches are page
+    pools (the recurrent ones stay per-row).  Returns (fp32 logits
+    (B, 1, V), caches)."""
     tokens = batch["tokens"]
     page_tables = batch.get("page_tables")
     x = embed_lookup(params["embed"], tokens, dtype=cfg.adtype)
-    for lp, cache in zip(params["layers"], caches):
-        h, _ = attention_decode(
-            lp["attn"], rmsnorm(lp["pre_norm"], x), cache, cache_len,
-            num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
-            head_dim=cfg.head_dim_(), window=cfg.window,
-            rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
-            page_table=page_tables)
-        x = x + h
-        if "moe" in lp:
-            y, _ = moe_decode(lp["moe"], rmsnorm(lp["post_norm"], x),
-                              num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
-                              activation=cfg.activation)
-            x = x + y
+    for lp, spec, cache in zip(params["layers"], layer_specs(cfg), caches):
+        xn = _norm(cfg, lp["pre_norm"], x)
+        if spec.mixer == "attn":
+            h, _ = attention_decode(
+                lp["attn"], xn, cache, cache_len,
+                num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+                head_dim=cfg.head_dim_(), window=cfg.window,
+                rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
+                page_table=page_tables)
+        elif spec.mixer == "mamba":
+            h, _ = mamba_decode(lp["mamba"], xn, cache)
+        elif spec.mixer == "mlstm":
+            h, _ = mlstm_decode(lp["mlstm"], xn, cache, num_heads=cfg.n_heads)
         else:
-            x = mlp_apply(lp["mlp"], rmsnorm(lp["post_norm"], x),
-                          activation=cfg.activation, residual=x)
+            h, _ = slstm_decode(lp["slstm"], xn, cache, num_heads=cfg.n_heads)
+        x, _ = _mlp(lp, spec, cfg, x + h, decode=True)
     return _unembed(params, cfg, x), caches
 
 
@@ -247,42 +325,50 @@ def lm_prefill(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, *, start_pos: int = 0
                ) -> Tuple[torch.Tensor, List[Dict]]:
     """Cache-filling prefill over batch["tokens"] (B, S).  With
-    batch["page_tables"] the caches are pools and K/V go straight into the
-    rows' pages; ``start_pos > 0`` runs the tail-only prefill of a
-    prefix-cache hit (tokens at ``[start_pos, start_pos + S)``).  Returns
-    (fp32 logits (B, S, V), caches ready for ``cache_len = start_pos+S``)."""
+    batch["page_tables"] the attention caches are pools and K/V go
+    straight into the rows' pages; ``start_pos > 0`` runs the tail-only
+    prefill of a prefix-cache hit (tokens at ``[start_pos, start_pos +
+    S)``; attention-only stacks: a recurrent state cannot resume from
+    pages).  Returns (fp32 logits (B, S, V), caches ready for
+    ``cache_len = start_pos + S``)."""
+    specs = layer_specs(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     page_tables = batch.get("page_tables")
-    if start_pos and page_tables is None:
-        raise ValueError(
-            "lm_prefill: start_pos > 0 needs page_tables — the cached "
-            "prefix lives in shared pool pages")
+    if start_pos:
+        if page_tables is None:
+            raise ValueError(
+                "lm_prefill: start_pos > 0 needs page_tables — the cached "
+                "prefix lives in shared pool pages")
+        bad = sorted({sp.mixer for sp in specs if sp.mixer != "attn"})
+        if bad:
+            raise ValueError(
+                "lm_prefill: start_pos > 0 needs an attention-only stack — "
+                f"recurrent mixers ({bad}) carry state the cached pages do "
+                "not hold")
     x = embed_lookup(params["embed"], tokens, dtype=cfg.adtype)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(start_pos, start_pos + s,
                                  device=x.device)[None].expand(b, s)
-    for lp, cache in zip(params["layers"], caches):
-        h, _ = attention_prefill(
-            lp["attn"], rmsnorm(lp["pre_norm"], x), cache,
-            num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
-            head_dim=cfg.head_dim_(), positions=positions, window=cfg.window,
-            chunk=cfg.attn_chunk, rope_theta=cfg.rope_theta,
-            use_rope=cfg.use_rope, accum=_accum(cfg), page_table=page_tables,
-            start_pos=start_pos)
-        x = x + h
-        if "moe" in lp:
-            y, _ = moe_apply(lp["moe"], rmsnorm(lp["post_norm"], x),
-                             num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
-                             capacity_factor=cfg.capacity_factor,
-                             activation=cfg.activation)
-            x = x + y
+    for lp, spec, cache in zip(params["layers"], specs, caches):
+        xn = _norm(cfg, lp["pre_norm"], x)
+        if spec.mixer == "attn":
+            h, _ = attention_prefill(
+                lp["attn"], xn, cache,
+                num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+                head_dim=cfg.head_dim_(), positions=positions, window=cfg.window,
+                chunk=cfg.attn_chunk, rope_theta=cfg.rope_theta,
+                use_rope=cfg.use_rope, accum=_accum(cfg), page_table=page_tables,
+                start_pos=start_pos)
+        elif spec.mixer == "mamba":
+            h, _ = mamba_prefill(lp["mamba"], xn, cache, chunk=cfg.ssm_chunk)
+        elif spec.mixer == "mlstm":
+            h, _ = mlstm_prefill(lp["mlstm"], xn, cache, num_heads=cfg.n_heads,
+                                 chunk=cfg.ssm_chunk)
         else:
-            # the residual rides the w_down epilogue
-            x = mlp_apply(lp["mlp"], rmsnorm(lp["post_norm"], x),
-                          activation=cfg.activation, accum=_accum(cfg),
-                          residual=x)
+            h, _ = slstm_prefill(lp["slstm"], xn, cache, num_heads=cfg.n_heads)
+        x, _ = _mlp(lp, spec, cfg, x + h)
     return _unembed(params, cfg, x), caches
 
 

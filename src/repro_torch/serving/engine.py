@@ -1,14 +1,19 @@
 """Continuous-batching serving engine over paged KV caches — torch port of
 ``src/repro/serving/engine.py``.
 
-The engine owns ``num_slots`` decode rows and one fp32 page pool per
-attention layer.  Each ``step`` is one scheduler event:
+The engine owns ``num_slots`` decode rows, one fp32 page pool per
+attention layer and, per recurrent layer (Mamba, mLSTM, sLSTM), an
+ordinary ``(num_slots, ...)`` row of state per slot, as the reference
+keeps them.  Each ``step`` is one scheduler event:
 
 1. **servicing** — the fault injector's step hook, the prefix-index
    self-check, pending cancels and deadlines;
 2. **admission** — the scheduler hands over requests whose token budget
    fits in the pool; each gets a slot, fresh pages and a paged prefill of
-   its prompt whose K/V lands straight in its pages.  With prefix caching
+   its prompt whose K/V lands straight in its pages; a recurrent layer
+   starts the slot's row from the initial state and leaves the prompt's
+   final state there.  With prefix caching (attention-only stacks: a
+   recurrent state cannot be resumed from pages, so it is off otherwise)
    the prompt's longest page-aligned cached prefix is mapped instead of
    recomputed and only the tail is prefilled at its ``start_pos`` (the
    match is capped one token short, so the tail is never empty).  A
@@ -16,9 +21,11 @@ attention layer.  Each ``step`` is one scheduler event:
 3. **decode** — one chunk of ``ticks`` decode steps for all slots (the
    fixed ``ticks_per_sync``, or the adaptive policy's pick), with
    per-row ``done``/budget freezing, per-row sampling params and PRNG
-   keys, and the non-finite guard, then ONE device-to-host transfer of
-   the packed outputs.  On the card the chunk is a CUDA graph captured
-   once per ``(ticks, sampled)`` variant and replayed
+   keys, and the non-finite guard (a frozen or free row's recurrent
+   state advances with the batch, as in the reference: nobody reads it
+   before the slot's next admission resets it), then ONE device-to-host
+   transfer of the packed outputs.  On the card the chunk is a CUDA
+   graph captured once per ``(ticks, sampled)`` variant and replayed
    (:mod:`repro_torch.serving.graphs`); on the CPU it runs eagerly;
 4. **retirement** — finished rows give their pages back.
 
@@ -34,8 +41,11 @@ chunk boundary; the guard quarantines a row whose logits go non-finite;
 ``PrefixIndex.verify()`` drops a corrupted index; a chunk that raises
 restores the host snapshot taken before it, degrades the engine to
 single-tick chunks and gives up after ``max_chunk_failures``
-consecutive failures.  A seeded :class:`~repro_torch.serving.faults.
-FaultInjector` drives all of it.  The writes an aborted chunk made sit at
+consecutive failures.  A chunk that raises after it started running on
+a stack with recurrent layers cannot be restored (it advanced their
+state in place): the engine raises, as the reference does when a
+failure outlived its donated caches.  A seeded
+:class:`~repro_torch.serving.faults.FaultInjector` drives all of it.  The writes an aborted chunk made sit at
 positions at or past each row's restored ``cache_len``: nobody attends
 them and the retry overwrites them.  The port's caches are updated in
 place, so the reference's check that a donated cache buffer survived the
@@ -55,7 +65,7 @@ from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (_check_ported, _select_token_rows,
-                                            lm_decode, lm_prefill)
+                                            init_caches, lm_decode, lm_prefill)
 
 from .graphs import ChunkGraphs, GraphFailure
 from .pages import NULL_PAGE, PagePool, PrefixIndex
@@ -73,13 +83,26 @@ class _Slot:
 
 
 @torch.no_grad()
-def _paged_prefill_step(params, tokens, caches, table, *, cfg, start=0,
-                        guard=True):
+def _paged_prefill_step(params, tokens, caches, table, slot, *, cfg,
+                        fresh_rows, start=0, guard=True):
     """Paged prefill-on-join of a (1, L) prompt (tail) straight into the
-    pool pages named by ``table`` (1, max_pages).  ``start > 0`` is the
-    prefix-cache tail at logical positions ``[start, start+L)``.  Returns
-    (first token (1,), all-finite flag) as device tensors."""
-    logits, _ = lm_prefill(params, caches,
+    pool pages named by ``table`` (1, max_pages).  A recurrent layer's
+    row ``slot`` is reset to ``fresh_rows`` (its initial state, one row)
+    and the prompt is prefilled into that row in place, so its final
+    state lands there (the reference prefills into a scratch row and
+    writes it to row ``slot``).  ``start > 0`` is the prefix-cache tail
+    at logical positions ``[start, start+L)``.  Returns (first token
+    (1,), all-finite flag) as device tensors."""
+    pre = []
+    for cache, fresh in zip(caches, fresh_rows):
+        if fresh is None:                      # attention: the page pool
+            pre.append(cache)
+            continue
+        row = {k: t[slot:slot + 1] for k, t in cache.items()}
+        for k, t in row.items():
+            t.copy_(fresh[k])
+        pre.append(row)
+    logits, _ = lm_prefill(params, pre,
                            {"tokens": tokens, "page_tables": table}, cfg,
                            start_pos=start)
     last = logits[:, -1]
@@ -184,7 +207,8 @@ class ServingEngine:
     ----------
     params : dense or BSR-packed params tree (both serve through
         ``models/layers.matmul``).
-    cfg : model config (attention + dense-MLP or MoE stacks; no SWA).
+    cfg : model config: attention, Mamba, mLSTM and sLSTM mixers, dense,
+        MoE or no MLP (no SWA).
     num_slots : decode-batch rows.
     page_size : tokens per physical KV page.
     max_seq_len : longest prompt + generation a request may hold.
@@ -201,7 +225,8 @@ class ServingEngine:
         overridable per request at :meth:`submit`.
     eos_id : stop token.
     seed : base of the per-request keys ``fold_in(PRNGKey(seed), rid)``.
-    prefix_caching : share page-aligned prompt-prefix K/V across requests.
+    prefix_caching : share page-aligned prompt-prefix K/V across requests;
+        off by construction when any mixer is not attention.
     max_queue : bound on the waiting queue; a submit past it is REJECTED.
     nan_guard : freeze and fail rows whose logits go non-finite.
     max_chunk_failures : consecutive decode-chunk exceptions tolerated
@@ -242,7 +267,7 @@ class ServingEngine:
         self.device = resolve_device(device)
         if cfg.window is not None:
             raise ValueError("paged KV caches do not support SWA windows")
-        _check_ported(cfg)
+        self._specs = _check_ported(cfg)
         if ticks_per_sync < 1:
             raise ValueError("ticks_per_sync must be >= 1")
         if cuda_graphs is None:
@@ -258,7 +283,8 @@ class ServingEngine:
         if num_pages is None:
             num_pages = num_slots * self.max_pages + 1
         self.pool = PagePool(num_pages, page_size)
-        self.prefix_caching = bool(prefix_caching)
+        self._attn = [spec.mixer == "attn" for spec in self._specs]
+        self.prefix_caching = bool(prefix_caching) and all(self._attn)
         self.prefix_index = PrefixIndex(self.pool) if self.prefix_caching else None
         self.scheduler = Scheduler(self.pool, self.prefix_index,
                                    max_queue=max_queue, aging_ticks=aging_ticks)
@@ -293,11 +319,18 @@ class ServingEngine:
         self._cancel_pending: Set[int] = set()
         self._step_progress = False   # terminal/retry event this step
 
+        # attention layers: page pools; recurrent layers: one row per slot
+        # (their state is O(1) per sequence), and the initial row that an
+        # admission resets a slot's row to
         shape = (num_pages, page_size, cfg.kv_heads, cfg.head_dim_())
+        rows = init_caches(cfg, num_slots, 1, torch.float32, self.device)
+        fresh = init_caches(cfg, 1, 1, torch.float32, self.device)
         self.caches = [
             {"k": torch.zeros(shape, dtype=torch.float32, device=self.device),
              "v": torch.zeros(shape, dtype=torch.float32, device=self.device)}
-            for _ in range(cfg.n_layers)]
+            if attn else row for attn, row in zip(self._attn, rows)]
+        self._fresh_rows = [None if attn else row
+                            for attn, row in zip(self._attn, fresh)]
 
         # host-mirrored per-slot state, pushed to the device every chunk
         self._tok = np.zeros((num_slots, 1), np.int32)
@@ -451,8 +484,9 @@ class ServingEngine:
                 self.params,
                 torch.as_tensor(req.prompt[start:][None], device=dev),
                 self.caches,
-                torch.as_tensor(self._tables[slot][None], device=dev),
-                cfg=self.cfg, start=start, guard=self.nan_guard)
+                torch.as_tensor(self._tables[slot][None], device=dev), slot,
+                cfg=self.cfg, fresh_rows=self._fresh_rows, start=start,
+                guard=self.nan_guard)
             # ONE host round-trip per admission: first token + guard flag
             # (the request's key is folded on the host)
             self.sync_regions["admission"] += 1
@@ -511,9 +545,10 @@ class ServingEngine:
                 if self.pool.free_pages == 0 and self.prefix_index is not None:
                     self.prefix_index.evict(1, exclude=set(s.pages))
                 new = self.pool.cow(pid)
-                for c in self.caches:
-                    c["k"][new] = c["k"][pid]
-                    c["v"][new] = c["v"][pid]
+                for c, attn in zip(self.caches, self._attn):
+                    if attn:
+                        c["k"][new] = c["k"][pid]
+                        c["v"][new] = c["v"][pid]
                 self._tables[i, idx] = new
                 s.pages[s.pages.index(pid)] = new
 
@@ -725,14 +760,20 @@ class ServingEngine:
         for i in active:
             left[i] = self.slots[i].req.max_new - len(self.slots[i].emitted)
         snap = self._snapshot()
+        started = False
         try:
             if self.injector is not None:
                 self.injector.on_chunk_start(self, active, ticks)
+            started = True
             packed = self._run_chunk(self._pack_inputs(left), ticks,
                                      bool(np.any(self._temp > 0.0)))
         except GraphFailure:
             raise
         except Exception as err:
+            if started and not all(self._attn):
+                raise RuntimeError(
+                    "decode chunk failed after it advanced the recurrent "
+                    "state in place; engine state is unrecoverable") from err
             self._recover_chunk_failure(snap, err)
             self.tick += 1
             return admitted

@@ -4,8 +4,10 @@ static ``(ticks, sampled)``) and of ``analysis/runtime.py``'s
 ``CompileTracker`` / ``cache_size``.
 
 A :class:`ChunkGraphs` belongs to one engine: a graph replays over the
-engine's own page pools and params, which are updated in place and so
-keep their storage.  The chunk function takes ONE packed int32 input
+engine's own page pools, recurrent state rows (Mamba, mLSTM, sLSTM) and
+params, which are updated in place and so keep their storage: the
+captured decode steps advance the rows with ``copy_`` into the same
+tensors, and an admission writes a slot's row between replays.  The chunk function takes ONE packed int32 input
 buffer (every host-mirrored slot vector, floats and keys by their bits)
 and returns ONE packed int32 output block, so a replay is
 
@@ -30,12 +32,15 @@ engine share one memory pool: they never run concurrently, and each
 replay's outputs are copied out before the next replay.
 
 Any failure to capture or replay raises :class:`GraphFailure`; the
-engine never falls back to the eager chunk on its own.
+engine never falls back to the eager chunk on its own.  The cyclic
+garbage collector runs just before a capture and not during it (see
+``_no_cyclic_gc``).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import time
 from typing import Callable, Dict, Tuple
 
@@ -61,6 +66,24 @@ def _sync_debug_error():
         yield
     finally:
         torch.cuda.set_sync_debug_mode(prev)
+
+
+@contextlib.contextmanager
+def _no_cyclic_gc():
+    """Collect garbage cycles now and none during the block: a
+    ``CUDAGraph`` freed by the collector while another stream captures
+    (a dropped engine's graphs sit in a cycle through its bound chunk
+    function) resets its graph in the middle of that capture, and CUDA
+    then invalidates the capture.  ``torch.cuda.graph`` no longer
+    collects on entry unless ``force_cudagraph_gc`` is set."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 @dataclasses.dataclass
@@ -123,7 +146,7 @@ class ChunkGraphs:
             torch.cuda.current_stream(self.device).wait_stream(side)
             host = first.cpu().numpy()
             graph = torch.cuda.CUDAGraph()
-            with _build.recorded_launches() as launches:
+            with _no_cyclic_gc(), _build.recorded_launches() as launches:
                 with torch.cuda.graph(graph, pool=self.pool):
                     out = self.fn(self.static_in, ticks, sampled)
             torch.cuda.synchronize(self.device)

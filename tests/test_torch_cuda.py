@@ -620,3 +620,120 @@ def test_packed_jets_forward_on_card(card):
         assert launch_counts["bsr_matmul"] == 3
         want = jets_mlp_forward(apply_masks(params, masks), x)
     assert _rel_err(got, want) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the recurrent and hybrid stacks served on the card
+# ---------------------------------------------------------------------------
+
+def _recurrent_streams(card, arch, heads, graphed):
+    """The 8-layer smoke model (jamba: ``heads`` = (head_dim, heads, KV
+    heads), one of the two head dims the paged kernels are built for (64,
+    and jamba's own 128 at its 4:1 grouping), capacity factor E/k = 2.0,
+    knapsack 0.5 at 32x32 so its attention, MLP and MoE weights run the
+    BSR and planes kernels; xLSTM dense), the tied embedding scaled by the
+    chip smoke's ``EMBED_SCALE`` so that streams follow the recurrent
+    state; one pass of 5 requests.  Returns (requests by rid, launches,
+    params, cfg, engine)."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+    from chip_smoke import EMBED_SCALE
+    jamba = arch.startswith("jamba")
+    kw = {}
+    if jamba:
+        dh, h, kvh = heads
+        kw = dict(head_dim=dh, n_heads=h, kv_heads=kvh, capacity_factor=2.0)
+    cfg = make_smoke(get_config(arch), n_layers=8, **kw)
+    params, _ = serve.build_params(cfg, seed=0, device=card,
+                                   pruned=0.5 if jamba else None,
+                                   block=(32, 32), min_size=1024)
+    params["embed"]["embedding"].mul_(EMBED_SCALE)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(4, 12, size=5)]
+    eng = ServingEngine(params, cfg, num_slots=3, page_size=4, max_seq_len=24,
+                        ticks_per_sync=4, device=card, cuda_graphs=graphed)
+    for i, p in enumerate(prompts):
+        eng.submit(p, 6, arrival=2 * i)
+    reset_launch_counts()
+    done = eng.run()
+    torch.cuda.synchronize()
+    return done, dict(launch_counts), params, cfg, eng
+
+
+@pytest.mark.parametrize("arch,heads", [("jamba-v0.1-52b", (64, 4, 4)),
+                                        ("jamba-v0.1-52b", (128, 8, 2)),
+                                        ("xlstm-350m", None)])
+def test_recurrent_stack_graphed_equals_eager_and_solo_on_card(card, arch, heads):
+    """Graphed streams equal the eager ones and solo decode, with the same
+    launch counts (jamba: every kernel of its path ran; xLSTM: none);
+    the card's prefill logits within 1e-4 of the CPU's plain path."""
+    from repro_torch.core.masks import map_tree
+    from repro_torch.launch import serve
+    from repro_torch.models import init_caches, lm_prefill
+    from repro_torch.serving import RequestStatus
+    from repro_torch.sparse import unpack_params
+    from chip_smoke import distinct_enough
+    eager, e_launch, params, cfg, _ = _recurrent_streams(card, arch, heads, False)
+    graphed, g_launch, _, _, eng = _recurrent_streams(card, arch, heads, True)
+    assert {r: q.tokens.tolist() for r, q in graphed.items()} == \
+        {r: q.tokens.tolist() for r, q in eager.items()}
+    assert all(q.status is RequestStatus.FINISHED for q in graphed.values())
+    assert all(distinct_enough(q.tokens.tolist()) for q in graphed.values())
+    assert g_launch == e_launch
+    used = ("bsr_matmul", "bsr_planes_matmul", "paged_attention_decode",
+            "paged_attention_prefill")
+    if arch.startswith("jamba"):
+        assert all(g_launch.get(k, 0) > 0 for k in used)
+        assert g_launch["paged_attention_decode"] == eng.decode_ticks
+    else:
+        assert not any(g_launch.get(k, 0) for k in used)
+    assert eng.analysis_stats()["captures"] >= 1
+    assert not serve.verify_streams(params, cfg, graphed, 6, device=card)
+    toks = torch.as_tensor(graphed[0].prompt[None], device=card)
+    dense = unpack_params(params) if arch.startswith("jamba") else params
+    with torch.no_grad():
+        got, _ = lm_prefill(params, init_caches(cfg, 1, 16, device=card),
+                            {"tokens": toks}, cfg)
+        want, _ = lm_prefill(map_tree(lambda t: t.cpu(), dense),
+                             init_caches(cfg, 1, 16, device="cpu"),
+                             {"tokens": toks.cpu()}, cfg)
+    assert _rel_err(got.cpu(), want) <= 1e-4
+
+
+def test_capture_survives_a_dead_engine_graph_in_a_cycle(card):
+    """An owner of captured graphs in a reference cycle (as an engine is,
+    through its bound chunk function) that becomes garbage while another
+    chunk is being captured must not be freed there: freeing a CUDAGraph
+    during a capture invalidates the capture.  The chunk below drops the
+    old owner mid-capture and allocates with the collector set to run on
+    nearly every allocation."""
+    import gc
+    from repro_torch.serving import ChunkGraphs
+    victims = []
+
+    def fn(packed, ticks, sampled):
+        if torch.cuda.is_current_stream_capturing():
+            victims.clear()                        # the old owner is garbage now
+        junk = [{"i": i} for i in range(200)]
+        return packed + ticks + 0 * len(junk)
+
+    class Owner:
+        pass
+
+    old = Owner()
+    old.me = old
+    old.graphs = ChunkGraphs(fn, 8, card)
+    assert (old.graphs(np.arange(8, dtype=np.int32), 1, False) == np.arange(8) + 1).all()
+    victims.append(old)
+    del old
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        g = ChunkGraphs(fn, 8, card)
+        for _ in range(2):
+            assert (g(np.arange(8, dtype=np.int32), 2, False) == np.arange(8) + 2).all()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not victims and g.stats()["replays"] == {"2/greedy": 1}

@@ -44,12 +44,21 @@ def test_port_imports_neither_jax_nor_reference_package():
     assert {"models/cnn.py", "data/synthetic.py", "core/resource_model.py",
             "paper/fpga_repro.py", "paper/table2_jets.py", "paper/table3_svhn.py",
             "paper/table5_lenet.py", "paper/__main__.py", "paper/quickstart.py",
-            "paper/prune_jets.py"} <= scanned
+            "paper/prune_jets.py", "models/mamba.py", "models/xlstm.py",
+            "configs/jamba_v0_1_52b.py", "configs/xlstm_350m.py"} <= scanned
     for path in _port_files():
         for lineno, mod in _imported_modules(path):
             if mod.split(".")[0] in FORBIDDEN:
                 bad.append(f"{path.relative_to(ROOT)}:{lineno} imports {mod}")
     assert not bad, "\n".join(bad)
+
+
+@pytest.mark.parametrize("module", ["models/mamba.py", "models/xlstm.py"])
+def test_recurrent_modules_import_neither_jax_nor_reference(module):
+    path = ROOT / "src" / "repro_torch" / module
+    mods = [m for _, m in _imported_modules(path)]
+    assert "torch" in mods
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
 
 
 def test_import_scan_catches_forbidden_imports(tmp_path):
@@ -72,14 +81,23 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_archs_and_mixers_raise():
+    """M-RoPE, encoder-decoder stacks, logit softcap and the MoE
+    all-to-all still raise; the recurrent and hybrid archs do not."""
     with pytest.raises(KeyError):
         get_config("mixtral-8x7b")
-    cfg = make_smoke(get_config("qwen1.5-0.5b"), mixer_pattern=("mamba",))
-    with pytest.raises(NotImplementedError, match="mamba"):
-        init_params(cfg, device="cpu")
+    qwen = make_smoke(get_config("qwen1.5-0.5b"))
+    for over, match in ((dict(mrope_sections=(4, 6, 6)), "M-RoPE"),
+                        (dict(enc_layers=2), "encoder-decoder"),
+                        (dict(logits_softcap=30.0), "softcap"),
+                        (dict(mixer_pattern=("none",)), "mixer 'none'")):
+        with pytest.raises(NotImplementedError, match=match):
+            init_params(qwen.replace(**over), device="cpu")
     cfg = make_smoke(get_config("granite-moe-1b-a400m"), moe_impl="alltoall")
     with pytest.raises(NotImplementedError, match="alltoall"):
         init_params(cfg, device="cpu")
+    for arch in ("jamba-v0.1-52b", "xlstm-350m"):
+        assert get_config(arch).n_layers in (32, 24)
+        init_params(make_smoke(get_config(arch), n_layers=8), device="cpu")
 
 
 def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
