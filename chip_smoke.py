@@ -10,15 +10,19 @@ Phases, any failure ends the run with a non-zero exit code:
 2. every kernel against its plain PyTorch version on the card, fp32 and
    bf16, with the tolerances below (BSR matmul: M 1/4/64/200, qwen's
    weight shapes and an odd one at 128x128 and 32x32 blocks, jamba's
-   (4096 -> 4096/1024/14336, 14336 -> 4096) at 128x128, an
-   all-pruned column, every epilogue the models use; BSR planes: E
+   (4096 -> 4096/1024/14336, 14336 -> 4096) and qwen2-vl's (1536 ->
+   1536/256/8960, 8960 -> 1536) at 128x128, an all-pruned column, every
+   epilogue the models use, and whisper's (384 -> 384/1536, 1536 -> 384)
+   with the gelu epilogue alone at M 4 and 6000, also fp32 weights under
+   bf16 activations; BSR planes: E
    1/3/32, M 1/8/47/200, granite's expert shapes and an odd one, and
    jamba's 16 experts (4096<->14336, M 2/10/64, 128x128 tiles), a dead
    and a fully dense plane, and with row counts of 0, C and ragged ones,
    one and two segments per plane, a live plane whose counts are all 0,
    rows past the count held to epilogue(0); paged decode and prefill:
    head_dim 64 at page sizes 4/8/16, GQA 16/16, 16/8, 8/2, 4/1, and
-   jamba's head_dim 128 at GQA 32/8, page size 8, ragged lengths
+   head_dim 128 at jamba's GQA 32/8 and qwen2-vl's 12/2 (G 6), page size
+   8, ragged lengths
    including 0, NaN in every page no row owns, q_offset 0/ps/3ps, and
    decode at an exact chunk boundary and past 8 chunks (1500 cached
    positions) in all four (q, pool) dtype pairs; structure norms: qwen's
@@ -31,7 +35,8 @@ Phases, any failure ends the run with a non-zero exit code:
    position bit-identical in a full, a tail (q_offset 3 ps) and a
    ragged-batch call, a planes row bit-identical at M 1/8/47 and with
    and without row counts, a decode row bit-identical alone, inside a
-   ragged batch of 5 and with a 4x wider page table; and the BSR matmul
+   ragged batch of 5 and with a 4x wider page table (both paged gates
+   also at qwen2-vl's G 6, head_dim 128); and the BSR matmul
    in fp32 at the paper models' packed FC layouts (``PAPER_LAYOUTS``:
    tiles (2..16, 1), (27, 1) over K 96, (50, 1), (24, 1), (1, 1) and
    (8, 8), ~40 % live, an all-pruned column) at M 1/64/256/2048, a row
@@ -75,9 +80,11 @@ Phases, any failure ends the run with a non-zero exit code:
    seconds per variant are reported for eager and graphed;
 4. one ``kernels`` JSON line with all five kernels: launches over the
    two runs (a) and phase 5 (rows of their own for the paper models'
-   fc_1, launches over phase 6, and for jamba's four kernels at its
-   shapes, launches over phase 7's graphed fp32 pass), error against the
-   plain version at every captured shape of phases 3, 5, 6 and 7 (held
+   fc_1, launches over phase 6, for jamba's four kernels at its shapes,
+   launches over phase 7's graphed fp32 pass, and for phase 8's BSR
+   kernel at whisper's encoder w_up and qwen2-vl's decode up/gate and its
+   G 6 paged attention), error against the
+   plain version at every captured shape of phases 3, 5, 6, 7 and 8 (held
    to the phase-2 tolerances), the card's busy share over
    each run (a) from ``torch.profiler``, and the kernel's, the plain
    version's and one PyTorch library call's time at the main paths'
@@ -163,6 +170,42 @@ Phases, any failure ends the run with a non-zero exit code:
    (admissions included), TTFT p50, the card's busy share, the build
    and pruning seconds, ``torch.cuda.max_memory_allocated`` and the
    phase's seconds.
+
+8. (run before phase 4) the encoder-decoder and multimodal families, each
+   knapsack-pruned at 0.75 with 128x128 tiles and packed: (a)
+   whisper-tiny whole (4 encoder + 4 decoder layers, d_model 384, vocab
+   51865, fp32 params) on the launcher's fixed batch (B 4, prompt 16, 32
+   tokens, frames (4, 1500, 384) from the seed): with fp32 activations,
+   ``lm_prefill`` + ``lm_generate`` equal to per-token greedy decode and
+   to each row decoded alone, prefill logits equal to ``lm_forward``'s
+   with frames, the packed forward within fp32 ``TOL`` of the masked
+   dense one, teacher-forced decode logits within ``DECODE_TOL`` of
+   ``lm_forward`` over the whole sequence, exact BSR launches (one per
+   packed weight per encoder pass and per decoder forward; the cross
+   projections stay dense, as the reference's pruner leaves them) and no
+   other kernel; greedy streams of these random weights repeat a token
+   (the decoder has no positional signal, as in the reference), so their
+   distinct tokens are reported, not gated; then bf16 activations (full
+   length, finite logits) and ``python -m repro_torch.launch.serve
+   --arch whisper-tiny --pruned 0.75``.  (b) qwen2-vl-2b whole (28
+   layers, d_model 1536, 12/2 heads of 128, M-RoPE (16, 24, 24)), built
+   in bf16 with the tied embedding scaled by ``EMBED_SCALE``: (i) an fp32
+   copy prefills B 2 on contiguous caches, 1024 stub patch embeddings on
+   a 32 x 32 grid at (0, i // 32, i % 32) and 64 text tokens at 32 + j,
+   then 16 greedy tokens, gated on prefill == ``lm_forward``,
+   ``lm_generate`` == per-token decode and 7 BSR launches per layer per
+   forward (greedy streams of these random weights repeat a token even
+   with the embedding scaled: reported); (ii) phase 3's text-only
+   traffic through ``ServingEngine``, every request sampled (temperature
+   0.8, top-k 50, top-p 0.9, keys from the rids), eager and graphed,
+   prefix caching on with a hit in every pass, gated as phase 7's runs
+   are (exact launches: BSR 7 x 28 per forward, paged decode 28 per
+   tick, paged prefill 28 per admission; graphed == eager; the
+   distinct-token floor), fp32 also == solo decode, then bf16.  An
+   eager pass of each keeps the kernels' inputs for phase 4 (rows of
+   their own in the ``kernels`` line).  Reported: tok/s, wall per tick,
+   TTFT p50, the busy share, build seconds, ``max_memory_allocated`` and
+   the phase's seconds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository beside it, the script exits non-zero and prints
@@ -311,7 +354,8 @@ def dname(dtype) -> str:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# the model uses none, bias, silu+mult and res; the rest covers the table
+# the models use none, bias, silu+mult, res and (whisper) gelu; the rest
+# covers the table
 EPIS = ["none", "bias", "silu+mult", "res", "bias+silu+mult",
         "bias+gelu+mult+res"]
 
@@ -339,15 +383,16 @@ def check_bsr(torch, dev) -> float:
     worst = 0.0
     i = 0
 
-    def run(g, bsr, dtype, **info):
-        """M 1/4/64/200 against the plain version, epilogues in turn."""
+    def run(g, bsr, dtype, ms=(1, 4, 64, 200), spec=None, **info):
+        """M 1/4/64/200 against the plain version, epilogues in turn (or
+        ``spec`` at every M)."""
         nonlocal i, worst
         k, n = bsr.shape
-        for m in (1, 4, 64, 200):
-            spec = EPIS[i % len(EPIS)]
+        for m in ms:
+            epi_spec = spec or EPIS[i % len(EPIS)]
             i += 1
             x = torch.randn((m, k), generator=g, device=dev).to(dtype)
-            epi = make_epilogue(torch, spec, m, n, dtype, g, dev)
+            epi = make_epilogue(torch, epi_spec, m, n, dtype, g, dev)
             got = ops.bsr_matmul(x, bsr, epilogue=epi)
             want = bsr_matmul_plain(x, bsr, epilogue=epi)
             torch.cuda.synchronize()
@@ -355,11 +400,11 @@ def check_bsr(torch, dev) -> float:
             ok = err <= TOL[dname(dtype)] and got.dtype == dtype
             REPORT["checks"].append(dict(
                 kernel="bsr_matmul", m=m, k=k, n=n, dtype=dname(dtype),
-                epilogue=spec, rel_err=err, ok=ok, **info))
+                epilogue=epi_spec, rel_err=err, ok=ok, **info))
             if not ok:
                 raise AssertionError(
                     f"bsr_matmul M={m} K={k} N={n} {info} {dname(dtype)} "
-                    f"{spec}: error {err:.3g} > {TOL[dname(dtype)]}")
+                    f"{epi_spec}: error {err:.3g} > {TOL[dname(dtype)]}")
             worst = max(worst, err)
 
     for shapes, blocks in BSR_SWEEPS:
@@ -382,19 +427,37 @@ def check_bsr(torch, dev) -> float:
             g = torch.Generator(device=dev).manual_seed(3000 + i)
             bsr = bsr_layout(torch, g, dev, k, n, bk, bn, dense, p_live, dtype)
             run(g, bsr, dtype, case=name, bk=bk, bn=bn, max_nnz=bsr.max_nnz)
-    log(f"  bsr_matmul: {i} cases OK (with a dense column and a near-cap "
-        f"column), worst normalized error {worst:.3g} (tolerance fp32 "
-        f"{TOL['float32']}, bf16 {TOL['bfloat16']})")
+    # whisper's weights, the gelu epilogue alone, about a quarter live;
+    # also fp32 weights under bf16 activations, as its config runs them
+    shapes, ms = WHISPER_BSR
+    f32, bf16 = torch.float32, torch.bfloat16
+    for k, n in shapes:
+        for wdtype, dtype in ((f32, f32), (bf16, bf16), (f32, bf16)):
+            g = torch.Generator(device=dev).manual_seed(4000 + i)
+            bsr = bsr_layout(torch, g, dev, k, n, 128, 128, 0, 0.25, wdtype)
+            run(g, bsr, dtype, ms=ms, spec="gelu", case="whisper", bk=128, bn=128,
+                weight_dtype=dname(wdtype))
+    log(f"  bsr_matmul: {i} cases OK (with a dense column, a near-cap "
+        f"column and whisper's gelu alone at M {list(ms)}), worst normalized "
+        f"error {worst:.3g} (tolerance fp32 {TOL['float32']}, bf16 "
+        f"{TOL['bfloat16']})")
     return worst
 
 
 # BSR sweeps: (K, N) and tiles; qwen's weights and an odd shape at 128x128
-# and 32x32, then jamba-v0.1-52b's wq/wo, wk/wv, up/gate and down at the
-# 128x128 tiles it is served with
+# and 32x32, then jamba-v0.1-52b's wq/wo, wk/wv, up/gate and down and
+# qwen2-vl-2b's wq/wo, wk/wv, up/gate and down at the 128x128 tiles they
+# are served with
 BSR_SWEEPS = ((((1024, 1024), (1024, 2816), (2816, 1024), (100, 36)),
                ((128, 128), (32, 32))),
               (((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)),
+               ((128, 128),)),
+              (((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)),
                ((128, 128),)))
+# whisper-tiny's weights (q/k/v/o, w_up, w_down) at 128x128 with the gelu
+# epilogue alone (its non-gated w_up), at the decoder's M 4 and the
+# encoder's M = 4 x 1500
+WHISPER_BSR = (((384, 384), (384, 1536), (1536, 384)), (4, 6000))
 
 # (K, N, bk, bn, dense block column, live share): qwen's down projection
 # at 32x32 tiles with one fully dense column (88 live slots, several slot
@@ -505,35 +568,34 @@ def check_bsr_invariance(torch, dev, weights) -> int:
 def check_prefill_invariance(torch, dev) -> int:
     """Gated: in fp32 a query position's prefill output is bit-identical
     in a full prefill (q_offset 0, S = L), a tail prefill (q_offset 3 ps)
-    and a ragged batch of 3 rows, at qwen's and granite's heads."""
+    and a ragged batch of 3 rows, at ``ATTN_INVARIANCE``'s heads."""
     from repro_torch.kernels import ops
     n = 0
-    dh, L = 64, 75
-    for ps in (8, 16):
-        for h, kvh in ((16, 16), (16, 8)):
-            g = torch.Generator(device=dev).manual_seed(ps + h + kvh)
-            lens = torch.tensor([L + 9, L, 11], dtype=torch.int32, device=dev)
-            kp, vp, tbl = poisoned_pools(torch, g, dev, 3, kvh, dh, ps,
-                                         -(-(L + 9) // ps), lens, torch.float32)
-            q = torch.randn((3, L + 9, h, dh), generator=g, device=dev)
-            one = lens[1:2].contiguous()
-            t1 = tbl[1:2].contiguous()
-            full = ops.paged_attention_prefill(q[1:2, :L].contiguous(), kp, vp,
-                                               t1, one)
-            off = 3 * ps
-            tail = ops.paged_attention_prefill(q[1:2, off:L].contiguous(), kp,
-                                               vp, t1, one, q_offset=off)
-            batch = ops.paged_attention_prefill(q, kp, vp, tbl, lens)
-            same = {"tail": bool(torch.equal(tail, full[:, off:])),
-                    "ragged_batch": bool(torch.equal(batch[1, :L], full[0]))}
-            REPORT["checks"].append(dict(kernel="paged_attention_prefill",
-                                         invariance=f"ps {ps} H {h} K {kvh}",
-                                         bit_identical=same,
-                                         ok=all(same.values())))
-            if not all(same.values()):
-                raise AssertionError(f"paged prefill ps={ps} H={h} K={kvh}: "
-                                     f"positions differ across calls {same}")
-            n += 1
+    L = 75
+    for dh, ps, h, kvh in ATTN_INVARIANCE:
+        g = torch.Generator(device=dev).manual_seed(ps + h + kvh)
+        lens = torch.tensor([L + 9, L, 11], dtype=torch.int32, device=dev)
+        kp, vp, tbl = poisoned_pools(torch, g, dev, 3, kvh, dh, ps,
+                                     -(-(L + 9) // ps), lens, torch.float32)
+        q = torch.randn((3, L + 9, h, dh), generator=g, device=dev)
+        one = lens[1:2].contiguous()
+        t1 = tbl[1:2].contiguous()
+        full = ops.paged_attention_prefill(q[1:2, :L].contiguous(), kp, vp,
+                                           t1, one)
+        off = 3 * ps
+        tail = ops.paged_attention_prefill(q[1:2, off:L].contiguous(), kp,
+                                           vp, t1, one, q_offset=off)
+        batch = ops.paged_attention_prefill(q, kp, vp, tbl, lens)
+        same = {"tail": bool(torch.equal(tail, full[:, off:])),
+                "ragged_batch": bool(torch.equal(batch[1, :L], full[0]))}
+        REPORT["checks"].append(dict(kernel="paged_attention_prefill",
+                                     invariance=f"dh {dh} ps {ps} H {h} K {kvh}",
+                                     bit_identical=same,
+                                     ok=all(same.values())))
+        if not all(same.values()):
+            raise AssertionError(f"paged prefill ps={ps} H={h} K={kvh}: "
+                                 f"positions differ across calls {same}")
+        n += 1
     return n
 
 
@@ -559,9 +621,15 @@ def poisoned_pools(torch, g, dev, b, kvh, dh, ps, max_pages, lens, pool_dtype):
 
 # paged attention sweeps: head_dim, page sizes, (heads, KV heads); qwen's
 # and granite's head_dim 64 over GQA 1:1 to 4:1, then jamba-v0.1-52b's
-# head_dim 128 at its 32/8 heads and the page size it is served with
+# head_dim 128 at its 32/8 heads and qwen2-vl-2b's at 12/2 (G 6, the one
+# group size that is not a power of two) at the page size they are
+# served with
 ATTN_SWEEPS = ((64, (4, 8, 16), ((16, 16), (16, 8), (8, 2), (4, 1))),
-               (128, (8,), ((32, 8),)))
+               (128, (8,), ((32, 8), (12, 2))))
+# the fp32 batch-invariance gates of the paged kernels: (head_dim, page
+# size, heads, KV heads) at qwen's and granite's heads, and qwen2-vl's G 6
+ATTN_INVARIANCE = [(64, ps, h, kvh) for ps in (8, 16)
+                   for h, kvh in ((16, 16), (16, 8))] + [(128, 8, 12, 2)]
 
 
 def check_attention(torch, dev) -> float:
@@ -855,41 +923,39 @@ def check_decode_chunks(torch, dev) -> float:
 def check_decode_invariance(torch, dev) -> int:
     """Gated: in fp32 a decode row's output is bit-identical computed
     alone (its own table), inside a ragged batch of 5 and with a table 4x
-    wider, at qwen's and granite's heads and page sizes 8 and 16."""
+    wider, at ``ATTN_INVARIANCE``'s heads and page sizes."""
     from repro_torch.kernels import ops
     n = 0
-    dh = 64
     lens = [61, 0, 1500, 7, 300]
-    for ps in (8, 16):
-        for h, kvh in ((16, 16), (16, 8)):
-            g = torch.Generator(device=dev).manual_seed(9500 + ps + kvh)
-            clen = torch.tensor(lens, dtype=torch.int32, device=dev)
-            mp = -(-1500 // ps) + 1
-            kp, vp, tbl = poisoned_pools(torch, g, dev, 5, kvh, dh, ps, mp, clen,
-                                         torch.float32)
-            q = torch.randn((5, h, dh), generator=g, device=dev)
-            kn = torch.randn((5, kvh, dh), generator=g, device=dev)
-            vn = torch.randn((5, kvh, dh), generator=g, device=dev)
-            batch = ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen)
-            same = {}
-            for r in (0, 2, 4):
-                one = [t[r:r + 1].contiguous() for t in (q, kn, vn)]
-                own = tbl[r:r + 1, :max(-(-lens[r] // ps), 1)].contiguous()
-                wide = torch.zeros((1, 4 * mp), dtype=torch.int32, device=dev)
-                wide[0, :mp] = tbl[r]
-                alone = ops.paged_attention_decode(*one, kp, vp, own, clen[r:r + 1])
-                wider = ops.paged_attention_decode(*one, kp, vp, wide, clen[r:r + 1])
-                same[f"row {r} alone"] = bool(torch.equal(alone, batch[r:r + 1]))
-                same[f"row {r} wide table"] = bool(torch.equal(wider,
-                                                               batch[r:r + 1]))
-            REPORT["checks"].append(dict(kernel="paged_attention_decode",
-                                         invariance=f"ps {ps} H {h} K {kvh}",
-                                         bit_identical=same,
-                                         ok=all(same.values())))
-            if not all(same.values()):
-                raise AssertionError(f"paged decode ps={ps} H={h} K={kvh}: rows "
-                                     f"differ across calls {same}")
-            n += 1
+    for dh, ps, h, kvh in ATTN_INVARIANCE:
+        g = torch.Generator(device=dev).manual_seed(9500 + ps + kvh)
+        clen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        mp = -(-1500 // ps) + 1
+        kp, vp, tbl = poisoned_pools(torch, g, dev, 5, kvh, dh, ps, mp, clen,
+                                     torch.float32)
+        q = torch.randn((5, h, dh), generator=g, device=dev)
+        kn = torch.randn((5, kvh, dh), generator=g, device=dev)
+        vn = torch.randn((5, kvh, dh), generator=g, device=dev)
+        batch = ops.paged_attention_decode(q, kn, vn, kp, vp, tbl, clen)
+        same = {}
+        for r in (0, 2, 4):
+            one = [t[r:r + 1].contiguous() for t in (q, kn, vn)]
+            own = tbl[r:r + 1, :max(-(-lens[r] // ps), 1)].contiguous()
+            wide = torch.zeros((1, 4 * mp), dtype=torch.int32, device=dev)
+            wide[0, :mp] = tbl[r]
+            alone = ops.paged_attention_decode(*one, kp, vp, own, clen[r:r + 1])
+            wider = ops.paged_attention_decode(*one, kp, vp, wide, clen[r:r + 1])
+            same[f"row {r} alone"] = bool(torch.equal(alone, batch[r:r + 1]))
+            same[f"row {r} wide table"] = bool(torch.equal(wider,
+                                                           batch[r:r + 1]))
+        REPORT["checks"].append(dict(kernel="paged_attention_decode",
+                                     invariance=f"dh {dh} ps {ps} H {h} K {kvh}",
+                                     bit_identical=same,
+                                     ok=all(same.values())))
+        if not all(same.values()):
+            raise AssertionError(f"paged decode ps={ps} H={h} K={kvh}: rows "
+                                 f"differ across calls {same}")
+        n += 1
     return n
 
 
@@ -2066,29 +2132,39 @@ def packed_counts(params):
             sum(isinstance(x, BSRPlanes) for x in leaves))
 
 
-def recurrent_engine(dev, params, cfg, prompts, gen, slots, graphed):
+def gated_engine(dev, params, cfg, prompts, gen, slots, graphed, **sampling):
     from repro_torch.serving import ServingEngine
     return ServingEngine(params, cfg, num_slots=slots, page_size=8,
                          max_seq_len=max(len(p) for p in prompts) + gen,
-                         ticks_per_sync=4, device=dev, cuda_graphs=graphed)
+                         ticks_per_sync=4, device=dev, cuda_graphs=graphed,
+                         **sampling)
 
 
-def recurrent_serve(torch, dev, gpu_line, label, params, cfg, prompts, gen, *,
-                    want, solo_slots=None):
+def serve_gated(torch, dev, gpu_line, label, params, cfg, prompts, gen, *,
+                want, solo_slots=None, prefix=False, sampling=None):
     """Serve the traffic over 4 slots through an eager engine (one pass)
-    and a graphed one (a capturing pass, a steady pass, a profiled pass).
-    Gated: prefix caching reported off, every stream FINISHED at full
-    length (``serve_pass``) with at least ``MIN_DISTINCT_SHARE`` of its
-    tokens distinct, every pass's launches equal to ``want(run)``, the
-    steady graphed streams equal to the eager ones.  With ``solo_slots``
-    a fresh graphed engine of that many slots serves the traffic once
-    more, and its streams must equal their solo decode.  Returns the
+    and a graphed one (a capturing pass, a steady pass, a profiled pass),
+    greedy or with the engine-level ``sampling`` (temperature, top-k,
+    top-p; each request's key from its rid).  Gated: prefix caching
+    reported off (``prefix``: on, with a hit in every pass), every stream
+    FINISHED at full length (``serve_pass``) with at least
+    ``MIN_DISTINCT_SHARE`` of its tokens distinct, every pass's launches
+    equal to ``want(run)``, the graphed first pass's streams equal to the
+    eager ones (same rids, so same keys) and, greedy, the steady pass's
+    too.  With ``solo_slots`` a fresh graphed engine of that many slots
+    serves the traffic once more, and its streams must equal their solo
+    decode (with the engine's key for each request).  Returns the
     report."""
+    sampling = sampling or {}
     from repro_torch.launch import serve
     out, done = {}, {}
 
     def gated(eng, label):
+        hits = eng.prefix_stats["hit_requests"]
         run = serve_pass(torch, eng, prompts, gen)
+        run["prefix_hits"] = eng.prefix_stats["hit_requests"] - hits
+        if prefix and run["prefix_hits"] < 1:
+            raise AssertionError(f"{label}: no prefix-cache hit")
         got = {k: run["launches"].get(k, 0) for k in SOURCES}
         if got != want(run):
             raise AssertionError(f"{label}: launches {got} != {want(run)}")
@@ -2101,10 +2177,10 @@ def recurrent_serve(torch, dev, gpu_line, label, params, cfg, prompts, gen, *,
 
     for graphed in (False, True):
         mode = "graphed" if graphed else "eager"
-        eng = recurrent_engine(dev, params, cfg, prompts, gen, 4, graphed)
-        if eng.prefix_stats["enabled"]:
-            raise AssertionError(f"{label}: prefix caching is on for a stack "
-                                 "with recurrent layers")
+        eng = gated_engine(dev, params, cfg, prompts, gen, 4, graphed, **sampling)
+        if eng.prefix_stats["enabled"] != prefix:
+            raise AssertionError(f"{label}: prefix caching is "
+                                 f"{'off' if prefix else 'on'}")
         runs = [gated(eng, f"{label} {mode} pass {i + 1}")
                 for i in range(2 if graphed else 1)]
         steady = runs[-1]
@@ -2114,7 +2190,7 @@ def recurrent_serve(torch, dev, gpu_line, label, params, cfg, prompts, gen, *,
                                steady["seconds"])
             out["captures"] = {k: eng.analysis_stats().get(k) for k in
                                ("variants", "capture_seconds", "replays")}
-        done[mode] = steady["done"]
+        done[mode] = [r["done"] for r in runs]
         distinct = sorted(len(set(r.tokens.tolist()))
                           for r in steady["done"].values())
         out[mode] = dict(passes=[public(r) for r in runs], device=busy,
@@ -2128,16 +2204,21 @@ def recurrent_serve(torch, dev, gpu_line, label, params, cfg, prompts, gen, *,
             f" tok/s, TTFT p50 {steady['ttft_ms_p50']:.2f} ms{share}; launches "
             f"{ {k: v for k, v in steady['launches'].items() if v} }; distinct "
             f"tokens per stream {distinct} of {gen}")
-    graphed = done["graphed"]
-    shift = min(graphed) - min(done["eager"])
-    same_streams(f"{label} graphed vs eager",
-                 {r - shift: q for r, q in graphed.items()}, done["eager"])
+    eager = done["eager"][0]
+    same_streams(f"{label} graphed pass 1 vs eager", done["graphed"][0], eager)
+    graphed = done["graphed"][-1]
+    if not sampling:           # the steady pass's rids (and keys) differ
+        shift = min(graphed) - min(eager)
+        same_streams(f"{label} graphed vs eager",
+                     {r - shift: q for r, q in graphed.items()}, eager)
     if solo_slots is not None:
-        eng = recurrent_engine(dev, params, cfg, prompts, gen, solo_slots, True)
+        eng = gated_engine(dev, params, cfg, prompts, gen, solo_slots, True,
+                           **sampling)
         run = gated(eng, f"{label} {solo_slots} slots")
         out[f"graphed_{solo_slots}_slots"] = public(run)
         t0 = time.perf_counter()
-        bad = serve.verify_streams(params, cfg, run["done"], gen, device=dev)
+        bad = serve.verify_streams(params, cfg, run["done"], gen, device=dev,
+                                   engine=eng)
         if bad:
             raise AssertionError(f"{label}, {solo_slots} slots: streams {bad} "
                                  "differ from solo decode")
@@ -2218,15 +2299,15 @@ def recurrent_path(torch, dev, gpu_line):
     # the kernels' inputs at jamba's shapes for phase 4, from an eager
     # pass (the capture reads lengths back to the host)
     with Capture(torch, ops) as cap:
-        serve_pass(torch, recurrent_engine(dev, params_a, cfg_a, prompts, gen,
+        serve_pass(torch, gated_engine(dev, params_a, cfg_a, prompts, gen,
                                            4, False), prompts, gen)
-    rep["jamba_a"] = recurrent_serve(
+    rep["jamba_a"] = serve_gated(
         torch, dev, gpu_line, f"jamba (a) fp32, capacity factor {moe}", params_a,
         cfg_a, prompts, gen, want=jamba_launches, solo_slots=2)
     launches = rep["jamba_a"]["graphed"]["passes"][-1]["launches"]
     del params_a
     torch.cuda.empty_cache()
-    rep["jamba_b"] = recurrent_serve(
+    rep["jamba_b"] = serve_gated(
         torch, dev, gpu_line, f"jamba (b) bf16, capacity factor "
         f"{base.capacity_factor}", packed, base, prompts, gen,
         want=jamba_launches)
@@ -2244,7 +2325,7 @@ def recurrent_path(torch, dev, gpu_line):
             ("xlstm_bf16", base, None)):
         params = init_params(cfg, seed=seed, device=dev)
         params["embed"]["embedding"].mul_(EMBED_SCALE)
-        rep[key] = recurrent_serve(torch, dev, gpu_line,
+        rep[key] = serve_gated(torch, dev, gpu_line,
                                    f"xlstm-350m {cfg.param_dtype}", params, cfg,
                                    prompts, gen, want=none,
                                    solo_slots=solo_slots)
@@ -2256,6 +2337,323 @@ def recurrent_path(torch, dev, gpu_line):
         f"max memory allocated {rep['max_memory_allocated_gb']:.1f} GB; took "
         f"{rep['seconds']:.1f}s; on {gpu_line}")
     return rep, launches, cap
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the encoder-decoder and multimodal families
+# ---------------------------------------------------------------------------
+
+WHISPER_PATH = "whisper-tiny (phase 8)"
+VLM_PATH = "qwen2-vl-2b (phase 8)"
+# whisper's fixed batch: the launcher's defaults (B 4, prompt 16, 32 tokens)
+WHISPER_B, WHISPER_PROMPT, WHISPER_GEN = 4, 16, 32
+# qwen2-vl's image: a 32 x 32 grid of stub patch embeddings (its config's
+# 1024), then 64 text tokens; 16 greedy tokens after them
+VLM_GRID, VLM_TEXT, VLM_GEN = (32, 32), 64, 16
+DECODE_TOL = 1e-4  # decode against a whole-sequence forward, of max |logit|
+
+
+def vlm_batch(cfg, b, text, seed, grid):
+    """Qwen2-VL's layout, drawn from ``seed`` with numpy: rows x cols
+    stub patch embeddings (normals of std 0.5) at positions (0, i // cols,
+    i % cols), then ``text`` tokens at max(rows, cols) + j in all three
+    components.  Returns numpy (tokens (B, P + text) int32, patch_embeds
+    (B, P, D) fp32, positions (B, P + text, 3) int32)."""
+    import numpy as np
+    rows, cols = grid
+    p = rows * cols
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, size=(b, p + text)).astype(np.int32)
+    patches = (0.5 * rng.standard_normal((b, p, cfg.d_model))).astype(np.float32)
+    i = np.arange(p)
+    img = np.stack([np.zeros(p, np.int64), i // cols, i % cols], axis=-1)
+    txt = np.repeat((max(rows, cols) + np.arange(text))[:, None], 3, axis=-1)
+    pos = np.broadcast_to(np.concatenate([img, txt])[None], (b, p + text, 3))
+    return tokens, patches, np.ascontiguousarray(pos).astype(np.int32)
+
+
+def clone_caches(caches):
+    return [{k: v.clone() for k, v in c.items()} for c in caches]
+
+
+def greedy_decode(torch, params, caches, first, start, n, cfg):
+    """n per-token greedy ``lm_decode`` steps from ``first`` (B, 1):
+    (B, n) tokens, ``tokens[:, 0] == first`` as ``lm_generate`` emits."""
+    from repro_torch.models import lm_decode
+    tok, out = first, []
+    for i in range(n):
+        out.append(tok[:, 0])
+        logits, caches = lm_decode(params, caches, {"tokens": tok}, start + i, cfg)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    return torch.stack(out, dim=1)
+
+
+def whisper_run(torch, dev, gpu_line):
+    """Phase 8 (a): whisper-tiny at full width (fp32 params), knapsack
+    0.75 at 128x128, packed; the launcher's fixed batch (B 4, prompt 16,
+    32 tokens, frames (4, 1500, 384) from the seed).  fp32 activations,
+    gated: ``lm_prefill`` + ``lm_generate`` tokens equal per-token greedy
+    ``lm_decode`` and each row decoded alone; prefill logits equal
+    ``lm_forward``'s with frames; the packed forward within fp32 ``TOL``
+    of the masked dense one; teacher-forced decode logits within
+    ``DECODE_TOL`` of ``lm_forward`` over the whole sequence (greedy streams
+    of these random weights repeat one token: the decoder has no
+    positional signal, as in the reference, so the distinct-token floor
+    is reported, not gated); exact BSR launches, one per packed weight
+    per encoder pass and per decoder forward (the cross projections stay
+    dense: no pruner include substring matches them), no other kernel.
+    Then the config's bf16 activations (full length, finite logits) and
+    the launcher's own run.  Returns (report, launches of the fp32 run,
+    the kernels' inputs captured from an eager pass)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import serve
+    from repro_torch.models import (encode_kv_caches, encoder_forward, init_caches,
+                                    lm_decode, lm_forward, lm_generate, lm_prefill)
+    from repro_torch.sparse import unpack_params
+    b, plen, gen = WHISPER_B, WHISPER_PROMPT, WHISPER_GEN
+    base = get_config("whisper-tiny")
+    cfg_a = base.replace(activ_dtype="float32")
+    t0 = time.perf_counter()
+    params, summ = serve.build_params(base, seed=0, device=dev, pruned=0.75,
+                                      block=(128, 128), min_size=4096)
+    torch.cuda.synchronize()
+    rep = dict(build_s=time.perf_counter() - t0, kept=summ["kept"],
+               structures=summ["total"], density=summ["density"])
+    n_enc = packed_counts(params["encoder"])[0]
+    n_dec = packed_counts(params["layers"])[0]
+    prompt, frames = serve.static_inputs(base, batch=b, prompt_len=plen, seed=0,
+                                         device=dev)
+
+    def generate(cfg, rows=slice(None), timed=None):
+        """Encoder, cross K/V, prefill, ``lm_generate``.  Returns (tokens,
+        prefill logits, the caches as the prefill left them)."""
+        t = time.perf_counter()
+        n = prompt[rows].shape[0]
+        caches = init_caches(cfg, n, plen + gen, torch.float32, dev)
+        enc = encoder_forward(params, frames[rows], cfg)
+        caches = encode_kv_caches(params, enc, cfg, caches)
+        logits, caches = lm_prefill(params, caches, {"tokens": prompt[rows]}, cfg)
+        first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        snap = clone_caches(caches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, _ = lm_generate(params, caches, first, plen, gen, cfg)
+        torch.cuda.synchronize()
+        if timed is not None:
+            timed.update(prefill_ms=(t1 - t) * 1e3, decode_s=time.perf_counter() - t1)
+        return toks, logits, snap
+
+    with torch.no_grad():
+        with Capture(torch, ops) as cap:             # warm-up, eager: inputs kept
+            generate(cfg_a)
+        times = {}
+        _build.reset_launch_counts()
+        toks, logits, snap = generate(cfg_a, timed=times)
+        launches = dict(_build.launch_counts)
+        want = {k: 0 for k in SOURCES}
+        want["bsr_matmul"] = n_enc + n_dec * (1 + gen)
+        if {k: launches.get(k, 0) for k in SOURCES} != want:
+            raise AssertionError(f"whisper fp32: launches {launches} != {want} "
+                                 f"({n_enc} encoder + {n_dec} decoder weights)")
+        steps = greedy_decode(torch, params, clone_caches(snap), toks[:, :1], plen,
+                              gen, cfg_a)
+        if not torch.equal(steps, toks):
+            raise AssertionError("whisper fp32: lm_generate != per-token lm_decode")
+        for r in range(b):
+            if not torch.equal(generate(cfg_a, rows=slice(r, r + 1))[0], toks[r:r + 1]):
+                raise AssertionError(f"whisper fp32: row {r} alone != in the batch")
+        fwd = lm_forward(params, {"tokens": prompt, "frames": frames}, cfg_a)[0]
+        err_fwd = rel_err(logits, fwd)
+        if err_fwd > TOL["float32"]:
+            raise AssertionError(f"whisper fp32: lm_prefill vs lm_forward {err_fwd:.3g}")
+        masked = lm_forward(unpack_params(params), {"tokens": prompt, "frames": frames},
+                            cfg_a)[0]
+        err_dense = rel_err(fwd, masked)
+        if err_dense > TOL["float32"]:
+            raise AssertionError(f"whisper fp32: packed vs masked dense {err_dense:.3g}")
+        del masked
+        forced = torch.as_tensor(np.random.default_rng(1).integers(
+            0, base.vocab, size=(b, gen)), device=dev).to(torch.int32)
+        full = lm_forward(params, {"tokens": torch.cat([prompt, forced], 1),
+                                   "frames": frames}, cfg_a)[0]
+        caches, err_tf = clone_caches(snap), 0.0
+        for i in range(gen - 1):
+            step, caches = lm_decode(params, caches, {"tokens": forced[:, i:i + 1]},
+                                     plen + i, cfg_a)
+            err_tf = max(err_tf, rel_err(step[:, 0], full[:, plen + i]))
+        if err_tf > DECODE_TOL:
+            raise AssertionError(f"whisper fp32: teacher-forced decode vs "
+                                 f"lm_forward {err_tf:.3g} > {DECODE_TOL}")
+        del full, caches, snap
+        distinct = [len(set(r)) for r in toks.tolist()]
+        busy = device_busy(torch, lambda: generate(cfg_a), times["prefill_ms"] / 1e3
+                           + times["decode_s"])
+        toks_b, logits_b, _ = generate(base)
+        if toks_b.shape != (b, gen) or not torch.isfinite(logits_b).all():
+            raise AssertionError("whisper bf16: short stream or non-finite logits")
+        agree = int((toks_b[:, 0] == toks[:, 0]).sum())
+    rep.update(launches=want, encoder_weights=n_enc, decoder_weights=n_dec,
+               prefill_ms=times["prefill_ms"], decode_s=times["decode_s"],
+               tok_per_s=b * gen / times["decode_s"], device=busy,
+               err_prefill_vs_forward=err_fwd, err_packed_vs_masked=err_dense,
+               err_teacher_forced=err_tf, distinct_tokens=distinct,
+               bf16_first_token_agreement=f"{agree}/{b}")
+    share = busy["busy_share"]
+    log(f"  whisper (a) fp32: kept {summ['kept']}/{summ['total']} structures, "
+        f"BSR density {summ['density']:.4f}; {n_enc} encoder + {n_dec} decoder "
+        f"packed weights, launches {launches['bsr_matmul']} = {n_enc} + {n_dec} x "
+        f"{1 + gen}; encoder + cross K/V + prefill {times['prefill_ms']:.2f} ms, "
+        f"decode {b * gen / times['decode_s']:.1f} tok/s; card busy "
+        + (f"{100 * share:.1f}%" if isinstance(share, float) else
+           f"not measured ({busy.get('error')})")
+        + f"; tokens == per-token decode == rows alone; prefill vs forward "
+        f"{err_fwd:.3g}, packed vs masked dense {err_dense:.3g}, teacher-forced "
+        f"decode vs forward {err_tf:.3g}; distinct tokens per stream {distinct} "
+        f"of {gen} (reported); bf16: full length, finite, first tokens equal "
+        f"to fp32 in {agree}/{b}; on {gpu_line}")
+    t1 = time.perf_counter()
+    if serve.main(["--arch", "whisper-tiny", "--pruned", "0.75"]) != 0:
+        raise AssertionError("whisper: the launcher failed")
+    rep["launcher_s"] = time.perf_counter() - t1
+    return rep, launches, cap
+
+
+def vlm_run(torch, dev, gpu_line):
+    """Phase 8 (b): qwen2-vl-2b at full width, built in bf16 (tied
+    embedding scaled by ``EMBED_SCALE``), knapsack 0.75 at 128x128,
+    packed, the dense tree freed.  (i) an fp32 copy prefills B 2 on
+    contiguous caches: 1024 stub patches on a 32 x 32 grid, then 64 text
+    tokens (``vlm_batch``), then 16 greedy tokens; gated: prefill logits
+    equal ``lm_forward``'s, ``lm_generate`` equal per-token decode, 7 BSR
+    launches per layer per forward.  (ii) text-only requests on phase
+    3's traffic through ``serve_gated`` (eager and graphed, prefix
+    caching on with a hit in every pass, exact launches, graphed ==
+    eager, the distinct floor): fp32 with streams == solo decode, then
+    bf16.  Greedy streams of these random weights repeat a token even
+    with the embedding scaled (phase (i) reports theirs), so (ii) samples
+    every request (``SAMPLING``, keys from the rids): the distinct floor
+    then means something, and each stream still has to equal its solo
+    decode token for token.  Returns (report, launches of the fp32
+    graphed steady pass, the kernels' inputs captured from an eager fp32
+    pass)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import BlockingSpec
+    from repro_torch.core.structures import iter_leaves
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models import (init_caches, init_params, lm_forward,
+                                    lm_generate, lm_prefill)
+    from repro_torch.sparse import knapsack_prune, pack_params, sparsity_summary
+    base = get_config("qwen2-vl-2b")
+    n_layers, gen = base.n_layers, VLM_GEN
+    t0 = time.perf_counter()
+    params = init_params(base, seed=0, device=dev)
+    params["embed"]["embedding"].mul_(EMBED_SCALE)
+    n_params = sum(t.numel() for _, t in iter_leaves(params))
+    sel = knapsack_prune(params, sparsity=0.75, blocking=BlockingSpec(128, 128),
+                         min_size=4096)
+    packed = pack_params(params, sel.masks, sel.structures)
+    summ = sparsity_summary(packed)
+    kept, total = sel.kept, sel.total
+    del params, sel
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rep = dict(build_s=time.perf_counter() - t0, params=n_params, kept=kept,
+               structures=total, density=summ["density"],
+               memory_gb=torch.cuda.memory_allocated() / 1e9)
+    n_bsr = packed_counts(packed)[0]
+    if n_bsr != 7 * n_layers:
+        raise AssertionError(f"qwen2-vl: {n_bsr} packed weights, not 7 x {n_layers}")
+    log(f"  qwen2-vl-2b: {n_params} params in {base.param_dtype}, init + knapsack "
+        f"+ pack {rep['build_s']:.1f}s; kept {kept}/{total} structures, BSR "
+        f"density {summ['density']:.4f}; {rep['memory_gb']:.1f} GB on the card")
+    cfg_a = base.replace(param_dtype="float32", activ_dtype="float32")
+    params_a = cast_tree(packed, torch.float32)
+
+    # (i) the patch prefill with Qwen2-VL's 3-D positions, then decode
+    tokens, patches, pos = vlm_batch(cfg_a, 2, VLM_TEXT, 0, VLM_GRID)
+    batch = {"tokens": torch.as_tensor(tokens, device=dev),
+             "patch_embeds": torch.as_tensor(patches, device=dev),
+             "positions": torch.as_tensor(pos, device=dev)}
+    s = tokens.shape[1]
+    with torch.no_grad():
+        _build.reset_launch_counts()
+        t1 = time.perf_counter()
+        logits, caches = lm_prefill(params_a, init_caches(cfg_a, 2, s + gen,
+                                                          torch.float32, dev),
+                                    batch, cfg_a)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+        pre = _build.launch_counts["bsr_matmul"]
+        first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        snap = clone_caches(caches)
+        _build.reset_launch_counts()
+        toks, _ = lm_generate(params_a, caches, first, s, gen, cfg_a)
+        dec = _build.launch_counts["bsr_matmul"]
+        if (pre, dec) != (n_bsr, n_bsr * gen):
+            raise AssertionError(f"qwen2-vl patch prefill: BSR launches {pre}, "
+                                 f"{dec} != {n_bsr}, {n_bsr * gen}")
+        err_fwd = rel_err(logits, lm_forward(params_a, batch, cfg_a)[0])
+        if err_fwd > TOL["float32"]:
+            raise AssertionError(f"qwen2-vl: lm_prefill vs lm_forward {err_fwd:.3g}")
+        del logits, caches
+        steps = greedy_decode(torch, params_a, snap, first, s, gen, cfg_a)
+        if not torch.equal(steps, toks):
+            raise AssertionError("qwen2-vl: lm_generate != per-token lm_decode")
+        del snap
+    distinct = [len(set(r)) for r in toks.tolist()]
+    rep["patch_prefill"] = dict(b=2, s=s, patches=patches.shape[1], prefill_ms=prefill_ms,
+                                launches_per_forward=n_bsr, err_vs_forward=err_fwd,
+                                distinct_tokens=distinct)
+    log(f"  qwen2-vl (i) fp32 patch prefill B 2 x S {s} ({patches.shape[1]} "
+        f"patches on a {VLM_GRID[0]}x{VLM_GRID[1]} grid, 3-D positions) "
+        f"{prefill_ms:.1f} ms, vs lm_forward {err_fwd:.3g}; {gen} greedy tokens "
+        f"== per-token decode (decode resumes at position {s} in every "
+        f"component, as in the reference); BSR {n_bsr} per forward; distinct "
+        f"tokens {distinct} of {gen}")
+
+    # (ii) text-only serving through the paged engine, eager and graphed
+    prompts = traffic(base.vocab, 0)
+
+    def want(run):
+        passes = run["decode_ticks"] + run["admissions"]
+        return {"bsr_matmul": n_bsr * passes, "bsr_planes_matmul": 0,
+                "paged_attention_decode": n_layers * run["decode_ticks"],
+                "paged_attention_prefill": n_layers * run["admissions"],
+                "structure_norms": 0}
+
+    with Capture(torch, ops) as cap:
+        serve_pass(torch, gated_engine(dev, params_a, cfg_a, prompts, gen, 4, False),
+                   prompts, gen)
+    rep["serve_a"] = serve_gated(torch, dev, gpu_line, "qwen2-vl-2b (a) fp32",
+                                 params_a, cfg_a, prompts, gen, want=want,
+                                 solo_slots=4, prefix=True, sampling=SAMPLING)
+    launches = rep["serve_a"]["graphed"]["passes"][-1]["launches"]
+    del params_a
+    torch.cuda.empty_cache()
+    rep["serve_b"] = serve_gated(torch, dev, gpu_line, "qwen2-vl-2b (b) bf16",
+                                 packed, base, prompts, gen, want=want, prefix=True,
+                                 sampling=SAMPLING)
+    del packed
+    torch.cuda.empty_cache()
+    return rep, launches, cap
+
+
+def family_path(torch, dev, gpu_line):
+    """Phase 8: (a) whisper-tiny, (b) qwen2-vl-2b.  Returns (report,
+    {path: launches of its counted run}, {path: captured inputs})."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rep, launches, caps = {}, {}, {}
+    rep["whisper"], launches[WHISPER_PATH], caps[WHISPER_PATH] = whisper_run(
+        torch, dev, gpu_line)
+    rep["qwen2_vl"], launches[VLM_PATH], caps[VLM_PATH] = vlm_run(torch, dev, gpu_line)
+    rep["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rep["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 8: max memory allocated {rep['max_memory_allocated_gb']:.1f} GB; "
+        f"took {rep['seconds']:.1f}s; on {gpu_line}")
+    return rep, launches, caps
 
 
 # ---------------------------------------------------------------------------
@@ -2570,13 +2968,17 @@ SOURCES = {
 }
 
 
-def timings(torch, dev, caps, launches, paper_launches, jamba_launches):
+def timings(torch, dev, caps, launches, paper_launches, jamba_launches,
+            family_launches):
     """Every kernel at the captured shapes of each path; returns the
     ``kernels`` line (one headline shape per kernel, launches summed
     over the paths' runs (a) and phase 5; then ``bsr_matmul`` at the
     paper models' packed fc_1, launches over phase 6; then the four
     kernels of jamba's path at its shapes, launches over its graphed
-    fp32 pass in phase 7)."""
+    fp32 pass in phase 7; then phase 8's: the BSR kernel at whisper's
+    encoder w_up (gelu alone, M 6000), launches over its fp32 run, and
+    qwen2-vl's BSR decode up/gate, paged decode and prefill at G 6,
+    launches over its graphed fp32 steady pass)."""
     from repro_torch.kernels import _build
     timer = Timer(dev)
     one = torch.zeros(1, device=dev)
@@ -2635,6 +3037,16 @@ def timings(torch, dev, caps, launches, paper_launches, jamba_launches):
         pick("paged_attention_decode", path=JAMBA_PATH),
         longest_prefill(JAMBA_PATH),
     ]
+    # phase 8: whisper's encoder w_up, qwen2-vl's decode up/gate and its
+    # G 6 attention
+    family_heads = [
+        pick("bsr_matmul", path=WHISPER_PATH, phase="prefill", k=384, n=1536,
+             epilogue="gelu"),
+        pick("bsr_matmul", path=VLM_PATH, phase="decode", k=1536, n=8960,
+             epilogue="silu+mult"),
+        pick("paged_attention_decode", path=VLM_PATH),
+        longest_prefill(VLM_PATH),
+    ]
     paper_heads = []
     for path, k, n in PAPER_TIMED:
         found = [r for r in rows if r["name"] == "bsr_matmul"
@@ -2648,7 +3060,9 @@ def timings(torch, dev, caps, launches, paper_launches, jamba_launches):
                       + [(r, {"paper (phase 6)": paper_launches})
                          for r in paper_heads]
                       + [(r, {JAMBA_PATH: jamba_launches})
-                         for r in jamba_heads]):
+                         for r in jamba_heads]
+                      + [(r, {r["path"]: family_launches[r["path"]]})
+                         for r in family_heads]):
         src, rep = SOURCES[r["name"]]
         by_path = {p: n.get(r["name"], 0) for p, n in counts.items()}
         out.append(dict(name=r["name"], route="cuda", source=src, replaces=rep,
@@ -2760,6 +3174,13 @@ def main() -> int:
         torch, dev, gpu_line)
     log(f"  phase 7 done at {time.perf_counter() - t_start:.1f}s")
 
+    log("phase 8: the encoder-decoder and multimodal families: whisper-tiny "
+        "(fixed batch, encoder + cross-attention) and qwen2-vl-2b (M-RoPE, "
+        "1024 patch embeddings, then the paged engine), full width, knapsack "
+        "0.75 at 128x128")
+    family_rep, family_launches, family_caps = family_path(torch, dev, gpu_line)
+    log(f"  phase 8 done at {time.perf_counter() - t_start:.1f}s")
+
     log("phase 4: kernel times at the main paths' shapes (CUDA events)")
     caps = {a: p[2] for a, p in paths.items()}
     launches = {a: p[3] for a, p in paths.items()}
@@ -2769,15 +3190,16 @@ def main() -> int:
         caps[f"{train_name}, lm_forward {dtype}"] = cap
     caps.update(paper_caps)
     caps[JAMBA_PATH] = recurrent_cap
+    caps.update(family_caps)
     kernels = timings(torch, dev, caps, launches, paper_launches,
-                      recurrent_launches)
+                      recurrent_launches, family_launches)
 
     REPORT.update(gpu=gpu_line, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=secs,
                   main_paths={a: {"fp32": p[0], "config_dtype": p[1]}
                               for a, p in paths.items()},
                   serving=serving, train_path=train_rep, paper_path=paper_rep,
-                  recurrent_path=recurrent_rep,
+                  recurrent_path=recurrent_rep, family_path=family_rep,
                   kernels=kernels, seconds=time.perf_counter() - t_start)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

@@ -43,17 +43,24 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def bsr_matmul(x: torch.Tensor, bsr: BSRWeight, *,
                epilogue: Optional[Epilogue] = None) -> torch.Tensor:
-    """y = epilogue(x @ W_bsr) for x (..., K); multiplier/residual are
-    shaped like the output (..., N)."""
+    """y = epilogue(x @ W_bsr) for x (..., K), in x's dtype;
+    multiplier/residual are shaped like the output (..., N).  bf16 x
+    under fp32 weights is contracted in fp32."""
     lead = x.shape[:-1]
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
     epi = None if epilogue is None else epilogue.map_operands(
         lambda a: a.reshape(-1, a.shape[-1]))
     if _on_card(x2):
+        # the kernel takes x in the weight's dtype; fp32 weights under
+        # bf16 activations (whisper-tiny's config) are contracted in fp32,
+        # as the reference's jnp.dot promotes them: x widens exactly
+        wide = bsr.blocks.dtype
+        if x2.dtype == torch.bfloat16 and wide == torch.float32:
+            x2 = x2.to(wide)
         if epi is not None:
-            epi = epi.map_operands(lambda a: a.contiguous())
-        y = bsr_matmul_cuda(x2.contiguous(), bsr, epilogue=epi)
+            epi = epi.map_operands(lambda a: a.to(x2.dtype).contiguous())
+        y = bsr_matmul_cuda(x2.contiguous(), bsr, epilogue=epi).to(x.dtype)
     else:
         y = bsr_matmul_plain(x2, bsr, epilogue=epi)
     return y.reshape(*lead, bsr.shape[1])

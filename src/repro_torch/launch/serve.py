@@ -8,7 +8,9 @@ runs on the card (``--device cpu`` runs the plain versions on the CPU,
 model at ``--block`` tiles and packs it to BSR, so every projection
 runs the BSR kernel.  Without ``--stream`` a fixed batch is prefilled
 and decoded on contiguous caches, greedy or sampled (``--temperature``,
-``--top-k``, ``--top-p``).  With ``--stream`` ragged requests arrive
+``--top-k``, ``--top-p``); for whisper-tiny, frame embeddings drawn from
+the seed go through the encoder first and fill the cross-attention K/V
+(the engine refuses encoder-decoder archs, as the reference's does).  With ``--stream`` ragged requests arrive
 every ``--arrive-every`` ticks and flow through the continuous-batching
 engine (paged KV pool, paged prefill and decode kernels,
 ``--ticks-per-sync`` decode steps per host sync, each chunk a CUDA graph
@@ -42,7 +44,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["build_params", "stream_prompts", "solo_decode", "solo_decode_for",
+__all__ = ["build_params", "stream_prompts", "static_inputs", "solo_decode",
+           "solo_decode_for",
            "verify_streams", "chaos_plan", "serve_chaos", "check_chaos", "main"]
 
 
@@ -368,13 +371,28 @@ def _run_chaos(args, cfg, params, device) -> int:
     return 0
 
 
+def static_inputs(cfg, *, batch: int, prompt_len: int, seed: int, device):
+    """The fixed batch's prompt (B, S) and, for an encoder-decoder arch,
+    its frame embeddings (B, enc_frames, D), standard normals, both
+    drawn from ``seed`` with numpy (frames after the prompt).  Returns
+    (prompt, frames or None)."""
+    rng = np.random.default_rng(seed)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=(batch, prompt_len)),
+                             device=device)
+    frames = None
+    if cfg.enc_layers:
+        frames = torch.as_tensor(rng.standard_normal(
+            (batch, cfg.enc_frames, cfg.d_model), dtype=np.float32), device=device)
+    return prompt, frames
+
+
 def _run_static(args, cfg, params, device) -> int:
-    from repro_torch.models import init_caches, lm_generate, lm_prefill
+    from repro_torch.models import (encode_kv_caches, encoder_forward,
+                                    init_caches, lm_generate, lm_prefill)
 
     b, plen = args.batch, max(args.prompt_len, 1)
-    rng = np.random.default_rng(args.seed)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, size=(b, plen)),
-                             device=device)
+    prompt, frames = static_inputs(cfg, batch=b, prompt_len=plen,
+                                   seed=args.seed, device=device)
 
     from repro_torch import prng
     # the reference draws its sampling key as the last of four splits
@@ -383,6 +401,9 @@ def _run_static(args, cfg, params, device) -> int:
     def once():
         caches = init_caches(cfg, b, plen + args.gen, torch.float32, device)
         with torch.no_grad():
+            if frames is not None:       # whisper: encode once, cross K/V
+                enc = encoder_forward(params, frames, cfg)
+                caches = encode_kv_caches(params, enc, cfg, caches)
             logits, caches = lm_prefill(params, caches, {"tokens": prompt}, cfg)
             tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
             _sync(device)

@@ -14,7 +14,13 @@ The contiguous branches and ``chunked_causal_attention`` stay plain
 torch — the reference has no kernel there either; the solo-decode check
 of the serving engine runs on them.  ``attention_apply`` is the
 cache-free training/eval forward (reference :128): it writes no cache,
-so autograd never sees an in-place update.
+so autograd never sees an in-place update; with ``kv_input`` it is
+whisper's cross-attention.  ``cross_attention_prefill`` and
+``attention_decode(update_cache=False)`` read the encoder K/V that
+``encode_kv_caches`` stored in ``cross_k`` / ``cross_v`` (contiguous
+caches only).  With ``mrope_sections`` q and k rotate by Qwen2-VL's
+M-RoPE over (B, S, 3) positions; decode tiles its one position to the
+three components, as the reference does (:407-410).
 """
 from __future__ import annotations
 
@@ -24,13 +30,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from .layers import apply_rope, dense, dense_init
+from .layers import apply_mrope, apply_rope, dense, dense_init
 
 __all__ = [
     "attention_init",
     "attention_apply",
     "attention_prefill",
     "attention_decode",
+    "cross_attention_prefill",
     "chunked_causal_attention",
     "full_attention",
     "init_kv_cache",
@@ -119,11 +126,24 @@ def _wo_project(p: Dict, o: torch.Tensor, num_heads: int, head_dim: int,
     return dense(p["wo"], o.reshape(b, s, num_heads * head_dim), accum=accum)
 
 
-def _qkv(p, x, num_heads, kv_heads):
+def _qkv(p, x, num_heads, kv_heads, src=None):
+    src = x if src is None else src
     q = _split_heads(dense(p["wq"], x), num_heads)
-    k = _split_heads(dense(p["wk"], x), kv_heads)
-    v = _split_heads(dense(p["wv"], x), kv_heads)
+    k = _split_heads(dense(p["wk"], src), kv_heads)
+    v = _split_heads(dense(p["wv"], src), kv_heads)
     return q, k, v
+
+
+def _rotate(q, k, positions, theta, mrope_sections):
+    """RoPE, or M-RoPE over (B, S, 3) positions (a (B, S) position is
+    tiled to its three components)."""
+    if mrope_sections is None:
+        return (apply_rope(q, positions, theta=theta),
+                apply_rope(k, positions, theta=theta))
+    if positions.ndim == 2:
+        positions = positions[..., None].expand(*positions.shape, 3)
+    return (apply_mrope(q, positions, mrope_sections, theta=theta),
+            apply_mrope(k, positions, mrope_sections, theta=theta))
 
 
 def attention_apply(
@@ -138,19 +158,21 @@ def attention_apply(
     window: Optional[int] = None,
     chunk: int = 512,
     rope_theta: float = 10000.0,
+    mrope_sections: Optional[Tuple[int, ...]] = None,
+    kv_input: Optional[torch.Tensor] = None,   # cross-attention source
     use_rope: bool = True,
     accum=None,
 ) -> torch.Tensor:
-    """Self-attention over the whole sequence with no cache (training,
-    evaluation); differentiable."""
+    """Attention over the whole sequence with no cache (training,
+    evaluation); differentiable.  ``kv_input`` (B, Sk, D) is the source
+    of K and V (cross-attention), x otherwise."""
     accum = accum or torch.float32
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, num_heads, kv_heads)
+    q, k, v = _qkv(p, x, num_heads, kv_heads, kv_input)
     if use_rope:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        q = apply_rope(q, positions, theta=rope_theta)
-        k = apply_rope(k, positions, theta=rope_theta)
+        q, k = _rotate(q, k, positions, rope_theta, mrope_sections)
     o = chunked_causal_attention(q, k, v, causal=causal, window=window,
                                  chunk=chunk)
     return _wo_project(p, o, num_heads, head_dim, accum)
@@ -168,6 +190,7 @@ def attention_prefill(
     window: Optional[int] = None,
     chunk: int = 512,
     rope_theta: float = 10000.0,
+    mrope_sections: Optional[Tuple[int, ...]] = None,
     use_rope: bool = True,
     accum=None,
     page_table: Optional[torch.Tensor] = None,   # (B, max_pages) pool ids
@@ -199,8 +222,7 @@ def attention_prefill(
         if positions is None:
             positions = torch.arange(start_pos, start_pos + s,
                                      device=x.device)[None].expand(b, s)
-        q = apply_rope(q, positions, theta=rope_theta)
-        k = apply_rope(k, positions, theta=rope_theta)
+        q, k = _rotate(q, k, positions, rope_theta, mrope_sections)
 
     ck, cv = cache["k"], cache["v"]
     kc, vc = k.to(ck.dtype), v.to(cv.dtype)
@@ -230,6 +252,19 @@ def attention_prefill(
     return out, cache
 
 
+def cross_attention_prefill(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                            *, num_heads: int, kv_heads: int, head_dim: int,
+                            chunk: int = 512) -> torch.Tensor:
+    """Full-sequence cross-attention of x (B, S, D), the normed decoder
+    stream, over the encoder K/V in ``cache["cross_k"]`` /
+    ``cache["cross_v"]`` (reference :311): no RoPE, no mask."""
+    q = _split_heads(dense(p["wq"], x), num_heads)
+    o = chunked_causal_attention(
+        q, cache["cross_k"].to(q.dtype), cache["cross_v"].to(q.dtype),
+        causal=False, window=None, chunk=chunk)
+    return _wo_project(p, o, num_heads, head_dim, torch.float32)
+
+
 def init_kv_cache(batch: int, max_len: int, kv_heads: int, head_dim: int,
                   dtype=torch.float32, device=None) -> Dict[str, torch.Tensor]:
     shape = (batch, max_len, kv_heads, head_dim)
@@ -248,14 +283,20 @@ def attention_decode(
     head_dim: int,
     window: Optional[int] = None,
     rope_theta: float = 10000.0,
+    mrope_sections: Optional[Tuple[int, ...]] = None,
     use_rope: bool = True,
+    update_cache: bool = True,
     page_table: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode; writes the new K/V into the cache in place.
 
     ``cache_len`` per row: each row writes at its own slot and masks
     scores past its own length.  With ``page_table`` the cache is a pool
-    and attention walks the table with the fused decode kernel."""
+    and attention walks the table with the fused decode kernel.
+    ``update_cache=False`` is the cross-attention read (reference
+    :378-380, :443-444): the cache holds the encoder's K/V, q takes no
+    RoPE, nothing is written and positions ``< cache_len`` are
+    attended; a page table is refused."""
     b = x.shape[0]
     cache_len = torch.as_tensor(cache_len, device=x.device).reshape(-1)
     cache_len = cache_len.expand(b).to(torch.int64)
@@ -266,17 +307,22 @@ def attention_decode(
             f"cache is not implemented (window={window} with page_table) — "
             "SWA uses contiguous ring caches; drop the window or use a "
             "contiguous cache")
+    if paged and not update_cache:
+        raise ValueError("paged KV caches do not support cross-attention "
+                         "reads")
     ck, cv = cache["k"], cache["v"]
     page_size = ck.shape[1]
     max_len = page_table.shape[1] * page_size if paged else ck.shape[1]
     ring = (not paged) and window is not None and max_len <= window
     q = _split_heads(dense(p["wq"], x), num_heads)          # (B,1,H,dh)
+    clen = cache_len[:, None]                               # (B, 1)
+    if not update_cache:     # cross-attention: the encoder's K/V, no RoPE
+        kpos = torch.arange(ck.shape[1], device=x.device)[None, :]
+        return _decode_attend(p, x, q, ck, cv, kpos < clen, head_dim), cache
     knew = _split_heads(dense(p["wk"], x), kv_heads)
     vnew = _split_heads(dense(p["wv"], x), kv_heads)
-    pos = cache_len[:, None]                                # (B, 1)
     if use_rope:
-        q = apply_rope(q, pos, theta=rope_theta)
-        knew = apply_rope(knew, pos, theta=rope_theta)
+        q, knew = _rotate(q, knew, clen, rope_theta, mrope_sections)
     if paged:
         pid = torch.gather(page_table.long(), 1,
                            (cache_len // page_size)[:, None])[:, 0]
@@ -292,16 +338,21 @@ def attention_decode(
     ck[rows, write_pos] = knew[:, 0].to(ck.dtype)
     cv[rows, write_pos] = vnew[:, 0].to(cv.dtype)
 
-    g = num_heads // kv_heads
-    qg = q.reshape(b, 1, kv_heads, g, head_dim)
-    scores = _gqa_scores(qg, ck) / math.sqrt(head_dim)      # (B,K,G,1,S)
     kpos = torch.arange(ck.shape[1], device=x.device)[None, :]
-    clen = cache_len[:, None]
     valid = kpos <= clen
     if window is not None and not ring:
         valid &= kpos > clen - window
+    return _decode_attend(p, x, q, ck, cv, valid, head_dim), cache
+
+
+def _decode_attend(p, x, q, ck, cv, valid, head_dim):
+    """One query per row, q (B, 1, H, dh), over a contiguous cache at the
+    positions where ``valid`` (B, S); fp32 softmax, then the output
+    projection."""
+    b, h, kv_heads = q.shape[0], q.shape[2], ck.shape[2]
+    qg = q.reshape(b, 1, kv_heads, h // kv_heads, head_dim)
+    scores = _gqa_scores(qg, ck) / math.sqrt(head_dim)      # (B,K,G,1,S)
     scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     o = _gqa_values(w, cv).to(x.dtype)                      # (B,1,K,G,dh)
-    o = dense(p["wo"], o.reshape(b, 1, num_heads * head_dim))
-    return o, cache
+    return dense(p["wo"], o.reshape(b, 1, h * head_dim))

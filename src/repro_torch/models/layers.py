@@ -1,4 +1,5 @@
-"""Primitive layers: dense, rmsnorm, layernorm, embeddings, rotary — torch port.
+"""Primitive layers: dense, rmsnorm, layernorm, embeddings, rotary (RoPE and
+Qwen2-VL's M-RoPE), sinusoidal positions — torch port.
 
 Counterpart of ``src/repro/models/layers.py``.  Params are nested dicts
 of tensors with the reference's leaf names ("kernel", "bias", "scale",
@@ -28,7 +29,8 @@ __all__ = [
     "matmul", "expert_matmul", "dense", "dense_init", "rmsnorm", "rmsnorm_init",
     "layernorm", "layernorm_init",
     "embed_init", "embed_lookup", "unembed_logits",
-    "rope_frequencies", "apply_rope", "truncated_normal",
+    "rope_frequencies", "apply_rope", "apply_mrope", "sinusoidal_positions",
+    "truncated_normal",
 ]
 
 
@@ -172,3 +174,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     ang = positions.to(torch.float32)[..., None] * inv      # (B, S, dh/2)
     sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
     return _rope_rotate(x, sin, cos)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections, *,
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE (reference :213): x (B, S, H, dh),
+    positions (B, S, 3) = (temporal, height, width) ids.  The dh/2
+    frequency slots split into ``sections`` (e.g. (16, 24, 24)); the
+    slots of section i rotate by position component i."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {half}")
+    inv = rope_frequencies(x.shape[-1], theta, device=x.device)
+    comp = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                      for i, n in enumerate(sections)])
+    ang = positions.to(torch.float32)[..., comp] * inv      # (B, S, dh/2)
+    sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
+    return _rope_rotate(x, sin, cos)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings (reference :238), (length,
+    dim) fp32: the sines of every frequency, then the cosines (not
+    interleaved).  Computed in float64 as numpy does there, then
+    rounded to fp32."""
+    pos = torch.arange(length, dtype=torch.float64)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float64)[None, :]
+    angle = pos / (10000.0 ** (2 * idx / dim))
+    out = torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+    return out.to(device=device, dtype=torch.float32)

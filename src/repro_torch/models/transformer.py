@@ -4,9 +4,16 @@
 slstm) and ``cfg.mlp_pattern`` (dense | moe | none) over the layers, as
 the reference does, so one function set serves attention LMs, MoE LMs,
 the Mamba/attention/MoE hybrid (jamba) and the xLSTM stack; norms are
-rmsnorm or layernorm.  M-RoPE, encoder-decoder stacks, logit softcap and
-the multi-device MoE all-to-all raise until they are ported
-(``_check_ported``).  ``lm_forward`` (:321) is the cache-free
+rmsnorm or layernorm.  An encoder-decoder config (whisper,
+``cfg.enc_layers`` > 0) adds a bidirectional encoder over precomputed
+frames (``encoder_forward`` :307, sinusoidal positions) and gives every
+decoder layer cross-attention over its output, whose K/V
+``encode_kv_caches`` (:421) stores in the caches for prefill and
+decode.  A VLM config (qwen2-vl) rotates by M-RoPE over (B, S, 3)
+positions and lets ``batch["patch_embeds"]`` (B, P, D) replace the
+first P token embeddings.  ``cfg.logits_softcap`` caps every logit.
+The multi-device MoE all-to-all and mixer "none" raise until they are
+ported (``_check_ported``).  ``lm_forward`` (:321) is the cache-free
 training/eval forward, differentiable, with each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat`` is not "none" (the
 counterpart of ``_remat_wrap`` :297); ``cross_entropy_loss`` (:366) adds
@@ -36,20 +43,24 @@ from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from .attention import (
+    _split_heads,
     attention_apply,
     attention_decode,
     attention_init,
     attention_prefill,
+    cross_attention_prefill,
     init_kv_cache,
 )
 from .ffn import mlp_apply, mlp_init
 from .layers import (
+    dense,
     embed_init,
     embed_lookup,
     layernorm,
     layernorm_init,
     rmsnorm,
     rmsnorm_init,
+    sinusoidal_positions,
     unembed_logits,
 )
 from .mamba import init_mamba_cache, mamba_apply, mamba_decode, mamba_init, mamba_prefill
@@ -71,6 +82,7 @@ __all__ = [
     "LayerSpec", "layer_specs", "init_params", "init_caches",
     "lm_forward", "cross_entropy_loss",
     "lm_prefill", "lm_decode", "lm_generate",
+    "encoder_forward", "encode_kv_caches",
 ]
 
 
@@ -93,18 +105,26 @@ def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     ]
 
 
-def _check_ported(cfg: ModelConfig) -> List[LayerSpec]:
-    """The specs of ``cfg``, or an error naming what is not ported yet."""
+# whisper's encoder layers: bidirectional attention and a dense MLP, no RoPE
+ENC_SPEC = LayerSpec(mixer="attn", mlp="dense", causal=False, use_rope=False)
+
+
+def _stack_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    """The decoder's specs: an encoder-decoder stack's decoder layers
+    are attention with cross-attention and a dense MLP, whatever the
+    patterns say (reference :349-351)."""
     if cfg.enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder stacks are not ported to torch yet")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is not ported to torch yet")
+        return [LayerSpec(mixer="attn", mlp="dense", cross_attn=True,
+                          use_rope=cfg.use_rope)] * cfg.n_layers
+    return layer_specs(cfg)
+
+
+def _check_ported(cfg: ModelConfig) -> List[LayerSpec]:
+    """The decoder's specs of ``cfg``, or an error naming what is not
+    ported yet."""
     if cfg.norm_type not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(f"{cfg.name}: {cfg.norm_type} is not ported yet")
-    if cfg.logits_softcap:
-        raise NotImplementedError(f"{cfg.name}: logit softcap is not ported yet")
-    specs = layer_specs(cfg)
+    specs = _stack_specs(cfg)
     for spec in specs:
         if spec.mixer not in ("attn", "mamba", "mlstm", "slstm"):
             raise NotImplementedError(
@@ -130,8 +150,12 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 def _init_mixer(spec: LayerSpec, cfg: ModelConfig, kw) -> Dict:
     if spec.mixer == "attn":
-        return {"attn": attention_init(cfg.d_model, cfg.n_heads, cfg.kv_heads,
-                                       cfg.head_dim_(), qkv_bias=cfg.qkv_bias, **kw)}
+        shape = (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim_())
+        p = {"attn": attention_init(*shape, qkv_bias=cfg.qkv_bias, **kw)}
+        if spec.cross_attn:
+            p["cross"] = attention_init(*shape, qkv_bias=cfg.qkv_bias, **kw)
+            p["cross_norm"] = _norm_init(cfg, kw["device"])
+        return p
     if spec.mixer == "mamba":
         return {"mamba": mamba_init(cfg.d_model, d_state=cfg.d_state,
                                     d_conv=cfg.d_conv, **kw)}
@@ -155,37 +179,54 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     kw = dict(generator=gen, device=device, dtype=cfg.dtype)
     params: Dict[str, Any] = {
         "embed": embed_init(cfg.vocab, cfg.d_model, **kw),
-        "layers": [],
+        "layers": [_init_layer(spec, cfg, kw) for spec in specs],
         "final_norm": _norm_init(cfg, device),
     }
-    for spec in specs:
-        layer = {"pre_norm": _norm_init(cfg, device), **_init_mixer(spec, cfg, kw)}
-        if spec.mlp != "none":
-            layer["post_norm"] = _norm_init(cfg, device)
-        if spec.mlp == "moe":
-            layer["moe"] = moe_init(cfg.d_model, cfg.d_ff, cfg.moe_experts,
-                                    gated=cfg.gated_mlp, **kw)
-        elif spec.mlp == "dense":
-            layer["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp, **kw)
-        params["layers"].append(layer)
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(cfg.vocab, cfg.d_model, **kw)
+    if cfg.enc_layers:
+        params["encoder"] = {
+            "layers": [_init_layer(ENC_SPEC, cfg, kw)
+                       for _ in range(cfg.enc_layers)],
+            "final_norm": _norm_init(cfg, device),
+        }
     return params
+
+
+def _init_layer(spec: LayerSpec, cfg: ModelConfig, kw) -> Dict:
+    layer = {"pre_norm": _norm_init(cfg, kw["device"]),
+             **_init_mixer(spec, cfg, kw)}
+    if spec.mlp != "none":
+        layer["post_norm"] = _norm_init(cfg, kw["device"])
+    if spec.mlp == "moe":
+        layer["moe"] = moe_init(cfg.d_model, cfg.d_ff, cfg.moe_experts,
+                                gated=cfg.gated_mlp, **kw)
+    elif spec.mlp == "dense":
+        layer["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp, **kw)
+    return layer
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.float32, device=None) -> List[Dict]:
     """Per-layer caches (reference :391): contiguous K/V (B, alloc, K,
     dh) for attention layers, the recurrent state for the others (Mamba's
-    conv window in ``dtype``, every other state fp32)."""
+    conv window in ``dtype``, every other state fp32).  An
+    encoder-decoder stack's layers also hold ``cross_k`` / ``cross_v``
+    (B, enc_frames, K, dh), zeros until ``encode_kv_caches`` fills
+    them."""
     device = resolve_device(device)
     specs = _check_ported(cfg)
     alloc = max_len if cfg.window is None else min(max_len, cfg.window)
     caches = []
     for spec in specs:
         if spec.mixer == "attn":
-            caches.append(init_kv_cache(batch, alloc, cfg.kv_heads,
-                                        cfg.head_dim_(), dtype, device))
+            c = init_kv_cache(batch, alloc, cfg.kv_heads, cfg.head_dim_(),
+                              dtype, device)
+            if spec.cross_attn:
+                cross = init_kv_cache(batch, cfg.enc_frames, cfg.kv_heads,
+                                      cfg.head_dim_(), dtype, device)
+                c.update(cross_k=cross["k"], cross_v=cross["v"])
+            caches.append(c)
         elif spec.mixer == "mamba":
             caches.append(init_mamba_cache(batch, 2 * cfg.d_model, cfg.d_state,
                                            cfg.d_conv, dtype, device))
@@ -225,17 +266,26 @@ def _mlp(lp: Dict, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor, *,
     return x + y, aux
 
 
-def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
-                 spec: LayerSpec, cfg: ModelConfig
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pre-norm residual layer of ``lm_forward``.  Returns (x, moe_aux)."""
+def _apply_layer(lp: Dict, x: torch.Tensor, positions: Optional[torch.Tensor],
+                 enc_out: Optional[torch.Tensor], spec: LayerSpec,
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm residual layer of ``lm_forward`` and the encoder.
+    Cross-attention normalizes the raw residual plus the self-attention
+    output, ``x + h`` (reference :240-250).  Returns (x, moe_aux)."""
     xn = _norm(cfg, lp["pre_norm"], x)
+    heads = dict(num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+                 head_dim=cfg.head_dim_())
     if spec.mixer == "attn":
         h = attention_apply(
-            lp["attn"], xn,
-            num_heads=cfg.n_heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim_(),
-            positions=positions, window=cfg.window, chunk=cfg.attn_chunk,
-            rope_theta=cfg.rope_theta, use_rope=cfg.use_rope, accum=_accum(cfg))
+            lp["attn"], xn, **heads, positions=positions, causal=spec.causal,
+            window=cfg.window, chunk=cfg.attn_chunk, rope_theta=cfg.rope_theta,
+            mrope_sections=cfg.mrope_sections, use_rope=spec.use_rope,
+            accum=_accum(cfg))
+        if spec.cross_attn and enc_out is not None:
+            xc = _norm(cfg, lp["cross_norm"], x + h)
+            h = h + attention_apply(lp["cross"], xc, **heads, causal=False,
+                                    chunk=cfg.attn_chunk, kv_input=enc_out,
+                                    use_rope=False)
     elif spec.mixer == "mamba":
         h = mamba_apply(lp["mamba"], xn, chunk=cfg.ssm_chunk)
     elif spec.mixer == "mlstm":
@@ -248,28 +298,66 @@ def _apply_layer(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
     return x, aux
 
 
-def lm_forward(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Forward to fp32 logits (B, S, V) over batch["tokens"] (B, S)
-    [, positions], with no cache.  Returns (logits, {"moe_aux": fp32
-    scalar summed over the layers}).  With ``cfg.remat`` other than
-    "none" each layer's activations are recomputed in the backward pass
-    (``torch.utils.checkpoint``, non-reentrant)."""
-    specs = _check_ported(cfg)
+def _run_layer(lp, x, positions, enc_out, spec: LayerSpec, cfg: ModelConfig):
+    """``_apply_layer``, recomputed in the backward pass when
+    ``cfg.remat`` is not "none" (``torch.utils.checkpoint``,
+    non-reentrant)."""
+    layer = functools.partial(_apply_layer, spec=spec, cfg=cfg)
+    if cfg.remat != "none" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            layer, lp, x, positions, enc_out, use_reentrant=False)
+    return layer(lp, x, positions, enc_out)
+
+
+def encoder_forward(params: Dict, frames: torch.Tensor, cfg: ModelConfig
+                    ) -> torch.Tensor:
+    """Whisper's encoder (reference :307) over precomputed frame
+    embeddings (B, T, D), the conv frontend being a stub: sinusoidal
+    positions added, bidirectional attention layers, the final norm.
+    Returns (B, T, D) in ``cfg.adtype``."""
+    x = frames.to(cfg.adtype)
+    pos = sinusoidal_positions(frames.shape[1], cfg.d_model, device=x.device)
+    x = x + pos.to(cfg.adtype)[None]
+    for lp in params["encoder"]["layers"]:
+        x = _run_layer(lp, x, None, None, ENC_SPEC, cfg)[0]
+    return _norm(cfg, params["encoder"]["final_norm"], x)
+
+
+def _embed(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+           start_pos: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token embeddings, the first P replaced by ``batch["patch_embeds"]``
+    (B, P, D) on a VLM config, and the positions: ``batch["positions"]``
+    or ``[start_pos, start_pos + S)``, tiled to (B, S, 3) under M-RoPE
+    (reference :330-341, :546-558)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, dtype=cfg.adtype)
+    if cfg.num_patches > 0 and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(cfg.adtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        positions = torch.arange(start_pos, start_pos + s, device=x.device)
+        if cfg.mrope_sections is not None:
+            positions = positions[None, :, None].expand(b, s, 3)
+        else:
+            positions = positions[None].expand(b, s)
+    return x, positions
+
+
+def lm_forward(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Forward to fp32 logits (B, S, V) over batch["tokens"] (B, S)
+    [, positions, patch_embeds, frames], with no cache.  Returns
+    (logits, {"moe_aux": fp32 scalar summed over the layers}).  With
+    ``cfg.remat`` other than "none" each layer's activations are
+    recomputed in the backward pass."""
+    specs = _check_ported(cfg)
+    x, positions = _embed(params, batch, cfg)
+    enc_out = encoder_forward(params, batch["frames"], cfg) if cfg.enc_layers else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, spec in zip(params["layers"], specs):
-        layer = functools.partial(_apply_layer, spec=spec, cfg=cfg)
-        if cfg.remat != "none" and torch.is_grad_enabled():
-            x, aux = torch.utils.checkpoint.checkpoint(
-                layer, lp, x, positions, use_reentrant=False)
-        else:
-            x, aux = layer(lp, x, positions)
+        x, aux = _run_layer(lp, x, positions, enc_out, spec, cfg)
         aux_total = aux_total + aux
     return _unembed(params, cfg, x), {"moe_aux": aux_total}
 
@@ -289,8 +377,26 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
 
 
 def _unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm, fp32 logits, ``cfg.logits_softcap`` applied (reference
+    :361, :503, :638)."""
     x = _norm(cfg, params["final_norm"], x)
-    return unembed_logits(params.get("lm_head", params["embed"]), x)
+    logits = unembed_logits(params.get("lm_head", params["embed"]), x)
+    if cfg.logits_softcap:
+        logits = cfg.logits_softcap * torch.tanh(logits / cfg.logits_softcap)
+    return logits
+
+
+def encode_kv_caches(params: Dict, enc_out: torch.Tensor, cfg: ModelConfig,
+                     caches: List[Dict]) -> List[Dict]:
+    """The decoder layers' cross-attention K/V of the encoder output
+    (B, T, D), stored as each cache's ``cross_k`` / ``cross_v`` in its
+    dtype (reference :421).  Returns the caches."""
+    for lp, c in zip(params["layers"], caches):
+        k = _split_heads(dense(lp["cross"]["wk"], enc_out), cfg.kv_heads)
+        v = _split_heads(dense(lp["cross"]["wv"], enc_out), cfg.kv_heads)
+        c["cross_k"] = k.to(c["cross_k"].dtype)
+        c["cross_v"] = v.to(c["cross_v"].dtype)
+    return caches
 
 
 def lm_decode(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
@@ -302,15 +408,21 @@ def lm_decode(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     page_tables = batch.get("page_tables")
     x = embed_lookup(params["embed"], tokens, dtype=cfg.adtype)
-    for lp, spec, cache in zip(params["layers"], layer_specs(cfg), caches):
+    heads = dict(num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+                 head_dim=cfg.head_dim_())
+    for lp, spec, cache in zip(params["layers"], _stack_specs(cfg), caches):
         xn = _norm(cfg, lp["pre_norm"], x)
         if spec.mixer == "attn":
             h, _ = attention_decode(
-                lp["attn"], xn, cache, cache_len,
-                num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
-                head_dim=cfg.head_dim_(), window=cfg.window,
-                rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
-                page_table=page_tables)
+                lp["attn"], xn, cache, cache_len, **heads, window=cfg.window,
+                rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections,
+                use_rope=spec.use_rope, page_table=page_tables)
+            if spec.cross_attn:
+                xc = _norm(cfg, lp["cross_norm"], x + h)
+                hc, _ = attention_decode(
+                    lp["cross"], xc, {"k": cache["cross_k"], "v": cache["cross_v"]},
+                    cache["cross_k"].shape[1], **heads, update_cache=False)
+                h = h + hc
         elif spec.mixer == "mamba":
             h, _ = mamba_decode(lp["mamba"], xn, cache)
         elif spec.mixer == "mlstm":
@@ -324,16 +436,16 @@ def lm_decode(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
 def lm_prefill(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
                cfg: ModelConfig, *, start_pos: int = 0
                ) -> Tuple[torch.Tensor, List[Dict]]:
-    """Cache-filling prefill over batch["tokens"] (B, S).  With
-    batch["page_tables"] the attention caches are pools and K/V go
-    straight into the rows' pages; ``start_pos > 0`` runs the tail-only
-    prefill of a prefix-cache hit (tokens at ``[start_pos, start_pos +
-    S)``; attention-only stacks: a recurrent state cannot resume from
-    pages).  Returns (fp32 logits (B, S, V), caches ready for
-    ``cache_len = start_pos + S``)."""
-    specs = layer_specs(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    """Cache-filling prefill over batch["tokens"] (B, S) [, positions,
+    patch_embeds].  With batch["page_tables"] the attention caches are
+    pools and K/V go straight into the rows' pages; ``start_pos > 0``
+    runs the tail-only prefill of a prefix-cache hit (tokens at
+    ``[start_pos, start_pos + S)``; attention-only stacks without
+    cross-attention: a recurrent or cross-attention state cannot resume
+    from pages).  An encoder-decoder stack reads the cross K/V that
+    ``encode_kv_caches`` stored.  Returns (fp32 logits (B, S, V), caches
+    ready for ``cache_len = start_pos + S``)."""
+    specs = _stack_specs(cfg)
     page_tables = batch.get("page_tables")
     if start_pos:
         if page_tables is None:
@@ -341,26 +453,27 @@ def lm_prefill(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
                 "lm_prefill: start_pos > 0 needs page_tables — the cached "
                 "prefix lives in shared pool pages")
         bad = sorted({sp.mixer for sp in specs if sp.mixer != "attn"})
-        if bad:
+        if bad or cfg.enc_layers:
             raise ValueError(
                 "lm_prefill: start_pos > 0 needs an attention-only stack — "
-                f"recurrent mixers ({bad}) carry state the cached pages do "
-                "not hold")
-    x = embed_lookup(params["embed"], tokens, dtype=cfg.adtype)
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(start_pos, start_pos + s,
-                                 device=x.device)[None].expand(b, s)
+                f"recurrent/cross-attn mixers ({bad or ['cross-attn']}) carry "
+                "state the cached pages do not hold")
+    x, positions = _embed(params, batch, cfg, start_pos)
+    heads = dict(num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+                 head_dim=cfg.head_dim_())
     for lp, spec, cache in zip(params["layers"], specs, caches):
         xn = _norm(cfg, lp["pre_norm"], x)
         if spec.mixer == "attn":
             h, _ = attention_prefill(
-                lp["attn"], xn, cache,
-                num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
-                head_dim=cfg.head_dim_(), positions=positions, window=cfg.window,
-                chunk=cfg.attn_chunk, rope_theta=cfg.rope_theta,
-                use_rope=cfg.use_rope, accum=_accum(cfg), page_table=page_tables,
-                start_pos=start_pos)
+                lp["attn"], xn, cache, **heads, positions=positions,
+                window=cfg.window, chunk=cfg.attn_chunk,
+                rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections,
+                use_rope=spec.use_rope, accum=_accum(cfg),
+                page_table=page_tables, start_pos=start_pos)
+            if spec.cross_attn:
+                xc = _norm(cfg, lp["cross_norm"], x + h)
+                h = h + cross_attention_prefill(lp["cross"], xc, cache, **heads,
+                                                chunk=cfg.attn_chunk)
         elif spec.mixer == "mamba":
             h, _ = mamba_prefill(lp["mamba"], xn, cache, chunk=cfg.ssm_chunk)
         elif spec.mixer == "mlstm":

@@ -267,6 +267,8 @@ class ServingEngine:
         self.device = resolve_device(device)
         if cfg.window is not None:
             raise ValueError("paged KV caches do not support SWA windows")
+        if cfg.enc_layers:
+            raise ValueError("encoder-decoder archs are not paged-servable")
         self._specs = _check_ported(cfg)
         if ticks_per_sync < 1:
             raise ValueError("ticks_per_sync must be >= 1")

@@ -737,3 +737,117 @@ def test_capture_survives_a_dead_engine_graph_in_a_cycle(card):
     finally:
         gc.set_threshold(*thresholds)
     assert not victims and g.stats()["replays"] == {"2/greedy": 1}
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and multimodal families on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [4, 300])
+def test_bsr_kernel_mixed_dtypes_match_plain(card, m):
+    """fp32 weights under bf16 activations (whisper-tiny's config): the
+    wrapper contracts in fp32, as the plain version and the reference's
+    promoting ``jnp.dot`` do, and returns bf16 within one bf16 rounding."""
+    g = torch.Generator(device=card).manual_seed(21)
+    bsr = _layout(card, g, 384, 1536, 128, 128, p_live=0.25, dtype=torch.float32)
+    x = torch.randn((m, 384), generator=g, device=card).to(torch.bfloat16)
+    res = torch.randn((m, 1536), generator=g, device=card).to(torch.bfloat16)
+    for epi in (Epilogue(activation="gelu"), Epilogue(residual=res)):
+        reset_launch_counts()
+        got = ops.bsr_matmul(x, bsr, epilogue=epi)
+        assert launch_counts["bsr_matmul"] == 1
+        want = bsr_matmul_plain(x, bsr, epilogue=epi)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16
+        assert _rel_err(got, want) <= 1e-2
+
+
+def test_whisper_smoke_on_card_matches_cpu(card):
+    """whisper smoke, knapsack 0.5 at 32x32 (its encoder and decoder
+    attention and MLP weights run the BSR kernel, the gelu epilogue
+    alone on w_up; the cross projections stay dense): the card's forward
+    with frames within 1e-4 of the masked dense params' on the CPU, lm_prefill +
+    lm_generate equal to per-token lm_decode, and one BSR launch per
+    packed weight per pass."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.core.masks import map_tree
+    from repro_torch.launch import serve
+    from repro_torch.models import (encode_kv_caches, encoder_forward, init_caches,
+                                    lm_decode, lm_forward, lm_generate, lm_prefill)
+    from repro_torch.sparse import unpack_params
+    from chip_smoke import packed_counts
+    cfg = make_smoke(get_config("whisper-tiny"))
+    params, _ = serve.build_params(cfg, seed=0, device=card, pruned=0.5,
+                                   block=(32, 32), min_size=1024)
+    prompt, frames = serve.static_inputs(cfg, batch=3, prompt_len=7, seed=0,
+                                         device=card)
+    n_enc = packed_counts(params["encoder"])[0]
+    n_dec = packed_counts(params["layers"])[0]
+    with torch.no_grad():
+        reset_launch_counts()
+        got, _ = lm_forward(params, {"tokens": prompt, "frames": frames}, cfg)
+        torch.cuda.synchronize()
+        assert launch_counts["bsr_matmul"] == n_enc + n_dec
+        cpu = map_tree(lambda t: t.cpu(), unpack_params(params))   # masked dense
+        want, _ = lm_forward(cpu, {"tokens": prompt.cpu(), "frames": frames.cpu()}, cfg)
+        assert _rel_err(got.cpu(), want) <= 1e-4
+        caches = encode_kv_caches(params, encoder_forward(params, frames, cfg), cfg,
+                                  init_caches(cfg, 3, 7 + 6, device=card))
+        logits, caches = lm_prefill(params, caches, {"tokens": prompt}, cfg)
+        assert _rel_err(logits, got) <= 1e-5
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        snap = [{k: v.clone() for k, v in c.items()} for c in caches]
+        toks, _ = lm_generate(params, caches, tok, 7, 6, cfg)
+        for i in range(6):
+            assert torch.equal(tok[:, 0], toks[:, i])
+            step, snap = lm_decode(params, snap, {"tokens": tok}, 7 + i, cfg)
+            tok = step[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+
+def test_vlm_smoke_on_card_at_group_size_six(card):
+    """qwen2-vl smoke at head_dim 128 with 12 query and 2 KV heads (the
+    paged kernels' G 6, as in qwen2-vl-2b), knapsack 0.5 at 32x32: the
+    patch prefill with 3-D positions within 1e-4 of the masked dense
+    params' on the CPU,
+    and the engine's graphed text streams equal to the eager ones and to
+    solo decode, every kernel of the path launched."""
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.core.masks import map_tree
+    from repro_torch.launch import serve
+    from repro_torch.models import init_caches, lm_prefill
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sparse import unpack_params
+    from chip_smoke import EMBED_SCALE, vlm_batch
+    cfg = make_smoke(get_config("qwen2-vl-2b"), head_dim=128, n_heads=12, kv_heads=2,
+                     mrope_sections=(16, 24, 24))
+    params, _ = serve.build_params(cfg, seed=0, device=card, pruned=0.5,
+                                   block=(32, 32), min_size=1024)
+    params["embed"]["embedding"].mul_(EMBED_SCALE)
+    tokens, patches, pos = vlm_batch(cfg, 2, 9, seed=1, grid=(2, 4))
+    batch = {"tokens": torch.from_numpy(tokens), "patch_embeds": torch.from_numpy(patches),
+             "positions": torch.from_numpy(pos)}
+    s = tokens.shape[1]
+    with torch.no_grad():
+        got, _ = lm_prefill(params, init_caches(cfg, 2, s, device=card),
+                            {k: v.to(card) for k, v in batch.items()}, cfg)
+        want, _ = lm_prefill(map_tree(lambda t: t.cpu(), unpack_params(params)),
+                             init_caches(cfg, 2, s, device="cpu"), batch, cfg)
+    assert _rel_err(got.cpu(), want) <= 1e-4
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in rng.integers(4, 14, size=5)]
+    streams = {}
+    for graphed in (False, True):
+        eng = ServingEngine(params, cfg, num_slots=3, page_size=8, max_seq_len=24,
+                            ticks_per_sync=4, device=card, cuda_graphs=graphed)
+        for i, p in enumerate(prompts):
+            eng.submit(p, 6, arrival=2 * i)
+        reset_launch_counts()
+        done = eng.run()
+        torch.cuda.synchronize()
+        streams[graphed] = {r: q.tokens.tolist() for r, q in done.items()}
+        assert all(launch_counts[k] > 0 for k in (
+            "bsr_matmul", "paged_attention_decode", "paged_attention_prefill"))
+        assert launch_counts["paged_attention_decode"] == cfg.n_layers * eng.decode_ticks
+    assert streams[True] == streams[False]
+    assert not serve.verify_streams(params, cfg, done, 6, device=card)

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, make_smoke
-from repro_torch.models import init_params
+from repro_torch.models import init_caches, init_params
 from repro_torch.serving import ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -45,7 +45,9 @@ def test_port_imports_neither_jax_nor_reference_package():
             "paper/fpga_repro.py", "paper/table2_jets.py", "paper/table3_svhn.py",
             "paper/table5_lenet.py", "paper/__main__.py", "paper/quickstart.py",
             "paper/prune_jets.py", "models/mamba.py", "models/xlstm.py",
-            "configs/jamba_v0_1_52b.py", "configs/xlstm_350m.py"} <= scanned
+            "configs/jamba_v0_1_52b.py", "configs/xlstm_350m.py",
+            "configs/whisper_tiny.py", "configs/qwen2_vl_2b.py",
+            "configs/mixtral_8x7b.py", "configs/command_r_plus_104b.py"} <= scanned
     for path in _port_files():
         for lineno, mod in _imported_modules(path):
             if mod.split(".")[0] in FORBIDDEN:
@@ -78,26 +80,37 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(params, cfg)
     assert ServingEngine(params, cfg, device="cpu").device.type == "cpu"
+    from repro_torch.launch import serve
+    whisper = make_smoke(get_config("whisper-tiny"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_caches(whisper, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "whisper-tiny", "--smoke", "--pruned", "0.75"])
 
 
 def test_unported_archs_and_mixers_raise():
-    """M-RoPE, encoder-decoder stacks, logit softcap and the MoE
-    all-to-all still raise; the recurrent and hybrid archs do not."""
-    with pytest.raises(KeyError):
-        get_config("mixtral-8x7b")
+    """Only mixer 'none' and the MoE all-to-all still raise; M-RoPE,
+    encoder-decoder stacks, logit softcap, every registered arch and the
+    recurrent and hybrid archs build on the CPU."""
     qwen = make_smoke(get_config("qwen1.5-0.5b"))
-    for over, match in ((dict(mrope_sections=(4, 6, 6)), "M-RoPE"),
-                        (dict(enc_layers=2), "encoder-decoder"),
-                        (dict(logits_softcap=30.0), "softcap"),
-                        (dict(mixer_pattern=("none",)), "mixer 'none'")):
-        with pytest.raises(NotImplementedError, match=match):
-            init_params(qwen.replace(**over), device="cpu")
+    with pytest.raises(NotImplementedError, match="mixer 'none'"):
+        init_params(qwen.replace(mixer_pattern=("none",)), device="cpu")
     cfg = make_smoke(get_config("granite-moe-1b-a400m"), moe_impl="alltoall")
     with pytest.raises(NotImplementedError, match="alltoall"):
         init_params(cfg, device="cpu")
+    for over, key in ((dict(mrope_sections=(4, 6, 6)), "layers"),
+                      (dict(enc_layers=2), "encoder"),
+                      (dict(logits_softcap=30.0), "layers")):
+        assert key in init_params(qwen.replace(**over), device="cpu")
+    for arch in ("mixtral-8x7b", "deepseek-7b", "deepseek-67b",
+                 "command-r-plus-104b", "whisper-tiny", "qwen2-vl-2b"):
+        assert get_config(arch).name == arch
+        init_params(make_smoke(get_config(arch)), device="cpu")
     for arch in ("jamba-v0.1-52b", "xlstm-350m"):
         assert get_config(arch).n_layers in (32, 24)
         init_params(make_smoke(get_config(arch), n_layers=8), device="cpu")
+    with pytest.raises(KeyError):
+        get_config("llama-7b")
 
 
 def test_training_entry_points_raise_without_a_card(monkeypatch, tmp_path):
