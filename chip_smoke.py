@@ -27,7 +27,11 @@ Phases, any failure ends the run with a non-zero exit code:
    decode at an exact chunk boundary and past 8 chunks (1500 cached
    positions) in all four (q, pool) dtype pairs; structure norms: qwen's
    and granite's expert weights and an odd one, 128 and 32 tiles; BSR
-   also a fully dense 88-slot column and a 1000-slot column), the MoE
+   also a fully dense 88-slot column and a 1000-slot column; planes also
+   at the all-to-all's expert buffers of phase 9, (32, 512) and (16,
+   1024) at granite's 1024 -> 512 and 512 -> 1024 experts 0.75 pruned,
+   fp32 and bf16, with and without row counts, rows past the fill held
+   to epilogue(0)), the MoE
    router's logits held to be the same for a token alone and in a batch
    (reported), and batch invariance in fp32 (gated): a BSR row is
    bit-identical alone and inside M 4/47/200 (the wide-column layouts
@@ -81,10 +85,12 @@ Phases, any failure ends the run with a non-zero exit code:
 4. one ``kernels`` JSON line with all five kernels: launches over the
    two runs (a) and phase 5 (rows of their own for the paper models'
    fc_1, launches over phase 6, for jamba's four kernels at its shapes,
-   launches over phase 7's graphed fp32 pass, and for phase 8's BSR
+   launches over phase 7's graphed fp32 pass, for phase 8's BSR
    kernel at whisper's encoder w_up and qwen2-vl's decode up/gate and its
-   G 6 paged attention), error against the
-   plain version at every captured shape of phases 3, 5, 6, 7 and 8 (held
+   G 6 paged attention, and for the planes kernel at phase 9's expert
+   buffers, launches over (a)'s and (b) rank 0's counted calls), error
+   against the plain version at every captured shape of phases 3, 5, 6,
+   7, 8 and 9 (held
    to the phase-2 tolerances), the card's busy share over
    each run (a) from ``torch.profiler``, and the kernel's, the plain
    version's and one PyTorch library call's time at the main paths'
@@ -206,6 +212,37 @@ Phases, any failure ends the run with a non-zero exit code:
    their own in the ``kernels`` line).  Reported: tok/s, wall per tick,
    TTFT p50, the busy share, build seconds, ``max_memory_allocated`` and
    the phase's seconds.
+
+9. (run before phase 4) the expert-parallel MoE through the all-to-all
+   (``models/moe_alltoall.py``), in child processes through
+   ``distributed.run_ranks``: granite-moe-1b-a400m at full width from
+   seed 0, knapsack 0.75 at 128x128, packed, fp32, ``moe_impl=
+   "alltoall"`` at capacity factor 4.0 = E/k (no slot drops at m = 1 or
+   2), B 4 x S 128 tokens, under ``make_train_rules(False)`` on a
+   ("data", "model") mesh.  (a) m = 1 over NCCL, mesh (1, 1): the
+   expert buffers are (32, 512, 1024); ``lm_forward`` and ``lm_prefill``
+   within fp32 ``TOL`` of the same calls with no mesh (``moe_apply``),
+   aux within 1e-6, exactly 96 BSR and 72 planes launches per call and
+   3 all-to-alls per MoE layer per call; one backward pass of
+   ``cross_entropy_loss`` on the dense (unpacked) params, every gradient
+   within 1e-4 of its leaf's largest against the no-mesh pass.  (b) m =
+   2 as two processes sharing the card over gloo (NCCL refuses two ranks
+   on one device), mesh (1, 2), 16 experts a rank, (16, 1024, 1024)
+   buffers: both ranks' logits and aux equal (a)'s, the same exact
+   launches, and at granite's own capacity factor 1.25, where slots may
+   drop, both ranks' logits are equal (each takes model rank 0's MoE
+   output); gloo stages the collective through the host, so (b)'s times
+   are no NCCL figure.  (c) at m = 1 under
+   ``make_decode_rules(False, shard_cache_seq=False)``: phase 3's first
+   4 requests through a graphed ``ServingEngine``, every stream equal
+   to the same engine's with no mesh and to solo decode, a prefix-cache
+   hit (the tail prefill also routes through the all-to-all), exact
+   launches and 3 all-to-alls per MoE layer per admission.  Reported:
+   ms per forward through the all-to-all and through ``moe_apply``, the
+   all-to-all's share (a forward with each collective timed between
+   synchronisations), the card's busy share, peak memory, tok/s with and
+   without the mesh and the phase's seconds; phase 4 times the planes
+   kernel at the captured expert buffers of (a) and of (b)'s rank 0.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository beside it, the script exits non-zero and prints
@@ -701,17 +738,17 @@ def check_attention(torch, dev) -> float:
     return worst
 
 
-def random_planes(torch, g, dev, e, k, n, bk, bn, dtype):
+def random_planes(torch, g, dev, e, k, n, bk, bn, dtype, p_live=0.3):
     """A BSRPlanes stack of E random planes: with E > 1 plane 0 is dead
-    and plane 1 fully dense, the rest about 30 % live with an all-pruned
-    block column."""
+    and plane 1 fully dense, the rest about ``p_live`` live with an
+    all-pruned block column."""
     from repro_torch.core import BlockingSpec, BSRPlanes, pack_bsr
     ebk, ebn = min(bk, k), min(bn, n)
     gk, gn = -(-k // ebk), -(-n // ebn)
     planes = []
     for p in range(e):
         w = torch.randn((k, n), generator=g, device=dev).to(dtype)
-        alive = torch.rand((gk, gn), generator=g, device=dev) < 0.3
+        alive = torch.rand((gk, gn), generator=g, device=dev) < p_live
         alive[:, 0] = False
         alive[0, -1] = True
         if e > 1 and p == 0:
@@ -833,6 +870,68 @@ def check_planes_counts(torch, dev) -> float:
     log(f"  bsr_planes_matmul with row counts: {i} cases OK (counts 0, C, "
         f"ragged; 1 and 2 segments; a live plane with all counts 0; rows past "
         f"the count = epilogue(0)), worst normalized error {worst:.3g}")
+    return worst
+
+
+# the expert buffers of phase 9's all-to-all on granite (B 4 x S 128
+# tokens, cf 4.0): (E_loc, c_exp) = (32, 512) at m = 1, (16, 1024) at m = 2;
+# its up/gate (1024 -> 512) and down (512 -> 1024) experts, 0.75 pruned
+A2A_BUFFERS = ((32, 512), (16, 1024))
+
+
+def check_planes_a2a(torch, dev) -> float:
+    """The planes kernel against its plain version at the all-to-all's
+    expert buffers, fp32 and bf16, with and without row counts (random
+    fills in [0, C], rows past them zero as the dispatch leaves them),
+    with the path's epilogues; rows past the fill held to epilogue(0)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.block_sparse_matmul import (
+        bsr_planes_matmul_plain, live_rows)
+    worst = 0.0
+    i = 0
+    for (e, c), (k, n) in itertools.product(A2A_BUFFERS, ((1024, 512), (512, 1024))):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(9000 + i)
+            planes = random_planes(torch, g, dev, e, k, n, 128, 128, dtype,
+                                   p_live=0.25)
+            counts = torch.randint(0, c + 1, (e, 1), generator=g, device=dev,
+                                   dtype=torch.int32)
+            live = live_rows(counts, c).reshape(e, c, 1)
+            x = torch.randn((e, c, k), generator=g, device=dev).to(dtype) * live
+            for spec in (("none", "silu+mult") if k == 1024 else ("none",)):
+                for rc in (counts, None):
+                    i += 1
+                    epi = make_epilogue(torch, spec, c, n, dtype, g, dev)
+                    if epi is not None:
+                        epi = epi.map_operands(lambda a: torch.randn(
+                            (e, c, n), generator=g, device=dev).to(dtype))
+                    got = ops.bsr_planes_matmul(x, planes, epilogue=epi,
+                                                row_counts=rc)
+                    want = bsr_planes_matmul_plain(x, planes, epilogue=epi,
+                                                   row_counts=rc)
+                    zero = bsr_planes_matmul_plain(torch.zeros_like(x), planes,
+                                                   epilogue=epi)
+                    torch.cuda.synchronize()
+                    dead = ~live_rows(counts, c)
+                    err = rel_err(got, want)
+                    err0 = rel_err(got[dead], zero[dead])
+                    tol = TOL[dname(dtype)]
+                    ok = err <= tol and err0 <= tol
+                    REPORT["checks"].append(dict(
+                        kernel="bsr_planes_matmul", a2a_buffer=[e, c], k=k, n=n,
+                        dtype=dname(dtype), epilogue=spec,
+                        row_counts=rc is not None, rel_err=err,
+                        dead_rows_err=err0, ok=ok))
+                    if not ok:
+                        raise AssertionError(
+                            f"bsr_planes_matmul at the all-to-all buffer ({e}, "
+                            f"{c}) K={k} N={n} {dname(dtype)} {spec} counts="
+                            f"{rc is not None}: error {err:.3g}, rows past the "
+                            f"fill vs epilogue(0) {err0:.3g} > {tol}")
+                    worst = max(worst, err, err0)
+    log(f"  bsr_planes_matmul at the all-to-all buffers {list(A2A_BUFFERS)}: "
+        f"{i} cases OK (fp32/bf16, with and without row counts, rows past the "
+        f"fill = epilogue(0)), worst normalized error {worst:.3g}")
     return worst
 
 
@@ -2657,6 +2756,405 @@ def family_path(torch, dev, gpu_line):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the expert-parallel MoE through the all-to-all
+# ---------------------------------------------------------------------------
+
+# granite at full width, knapsack 0.75 at 128x128, packed, fp32, at cf
+# E/k = 4.0 (no slot drops at m = 1 or 2); B 4 x S 128 = 512 tokens
+A2A = dict(arch="granite-moe-1b-a400m", smoke=False, batch=4, seq=128, cf=4.0,
+           block=(128, 128), min_size=4096, requests=4, gen=16, reps=3)
+A2A_PATHS = {1: "granite-moe-1b-a400m all-to-all m=1 (phase 9)",
+             2: "granite-moe-1b-a400m all-to-all m=2 (phase 9)"}
+A2A_GRAD_TOL = 1e-4        # gradients, of each leaf's max |grad|
+
+
+class CollectiveClock:
+    """Counts ``torch.distributed.all_to_all_single`` calls and, with
+    ``timed``, the wall seconds inside them (the card synchronised before
+    and after each, so the time is the collective's own)."""
+
+    def __init__(self, torch, timed=False):
+        import torch.distributed as dist
+        self.torch, self.dist = torch, dist
+        self.timed = timed
+        self.calls, self.seconds = 0, 0.0
+        self.orig = None
+
+    def __enter__(self):
+        torch = self.torch
+        a2a = self.orig = self.dist.all_to_all_single
+
+        def all_to_all_single(out, inp, *a, **kw):
+            self.calls += 1
+            if self.timed:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            r = a2a(out, inp, *a, **kw)
+            if self.timed:
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+            return r
+
+        self.dist.all_to_all_single = all_to_all_single
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_to_all_single = self.orig
+        return False
+
+
+def a2a_build(torch, dev, spec):
+    """(cfg, packed params, summary, tokens, labels) of phase 9: the arch
+    in fp32 at ``spec["cf"]`` with ``moe_impl="alltoall"``, from seed 0,
+    knapsack-pruned and packed; tokens and labels from a numpy seed."""
+    import numpy as np
+    from repro_torch.configs import get_config, make_smoke
+    from repro_torch.launch import serve
+    cfg = get_config(spec["arch"])
+    if spec["smoke"]:
+        cfg = make_smoke(cfg)
+    cfg = cfg.replace(param_dtype="float32", activ_dtype="float32",
+                      capacity_factor=spec["cf"], moe_impl="alltoall")
+    params, summ = serve.build_params(cfg, seed=0, device=dev, pruned=0.75,
+                                      block=spec["block"],
+                                      min_size=spec["min_size"])
+    rng = np.random.default_rng(1)
+    shape = (spec["batch"], spec["seq"])
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=shape), device=dev)
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab, size=shape), device=dev)
+    return cfg, params, summ, tokens, labels
+
+
+def a2a_forwards(torch, params, cfg, tokens, dev, counted=False):
+    """``lm_forward`` and ``lm_prefill`` (contiguous caches) on the
+    tokens, under whatever mesh and rules are installed.  With
+    ``counted`` the launch counts are zeroed just before each call and
+    read just after.  Returns (logits, aux, prefill logits, [launches of
+    each call])."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_caches, lm_forward, lm_prefill
+    launches = []
+    with torch.no_grad():
+        caches = init_caches(cfg, *tokens.shape, torch.float32, dev)
+        torch.cuda.synchronize()
+        if counted:
+            _build.reset_launch_counts()
+        logits, aux = lm_forward(params, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        launches.append(dict(_build.launch_counts))
+        if counted:
+            _build.reset_launch_counts()
+        plog, _ = lm_prefill(params, caches, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        launches.append(dict(_build.launch_counts))
+    return logits, aux["moe_aux"], plog, launches
+
+
+def a2a_timed(torch, params, cfg, tokens, reps):
+    """Median wall ms of ``lm_forward`` (synchronised) over ``reps``."""
+    from repro_torch.models import lm_forward
+    times = []
+    with torch.no_grad():
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm_forward(params, {"tokens": tokens}, cfg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def a2a_measure(torch, params, cfg, tokens, spec, profile=False):
+    """ms per forward, the all-to-all's share of it (a forward with each
+    collective timed alone), peak memory and, with ``profile``, the
+    card's busy share over one forward."""
+    from repro_torch.models import lm_forward
+    torch.cuda.reset_peak_memory_stats()
+    ms = a2a_timed(torch, params, cfg, tokens, spec["reps"])
+    peak = torch.cuda.max_memory_allocated()
+    with CollectiveClock(torch, timed=True) as clock, torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm_forward(params, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = dict(ms_per_forward=ms, peak_bytes=peak,
+               all_to_all_calls=clock.calls, all_to_all_ms=clock.seconds * 1e3,
+               all_to_all_share=clock.seconds / wall)
+    if profile:
+        def run():
+            with torch.no_grad():
+                lm_forward(params, {"tokens": tokens}, cfg)
+            torch.cuda.synchronize()
+        out["device"] = device_busy(torch, run, ms / 1e3)
+    return out
+
+
+def a2a_grads(torch, params, cfg, tokens, labels):
+    """Gradients of ``cross_entropy_loss`` over ``lm_forward`` on the
+    dense (unpacked, masked) params, under whatever mesh is installed
+    (the backward runs inside it: each layer's recomputation routes as
+    its forward did).  Returns {path: grad} of the float leaves."""
+    from repro_torch.core.structures import iter_leaves
+    from repro_torch.models import cross_entropy_loss, lm_forward
+    from repro_torch.sparse import unpack_params
+    dense = unpack_params(params)
+    leaves = {path: leaf for path, leaf in iter_leaves(dense)
+              if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()}
+    for leaf in leaves.values():
+        leaf.requires_grad_(True)
+    logits, _ = lm_forward(dense, {"tokens": tokens}, cfg)
+    cross_entropy_loss(logits, labels).backward()
+    torch.cuda.synchronize()
+    return {path: leaf.grad for path, leaf in leaves.items()}
+
+
+def a2a_capture(torch, params, cfg, tokens, dev):
+    """One forward and prefill under ``Capture``: the BSR kernel's inputs
+    at granite's attention (M 512) and the planes kernel's at the
+    all-to-all's expert buffers, for phase 4."""
+    from repro_torch.kernels import ops
+    with Capture(torch, ops) as cap:
+        a2a_forwards(torch, params, cfg, tokens, dev)
+    return {"bsr": cap.bsr, "planes": cap.planes}
+
+
+def a2a_single(rank, spec):
+    """Phase 9 (a) and (c), one rank over NCCL, mesh (1, 1).  (a):
+    ``lm_forward`` / ``lm_prefill`` through the all-to-all against the
+    same calls with no mesh (``moe_apply``), exact launches, one backward
+    pass; (c): the engine on phase 3's traffic under the decode rules
+    against the same engine with no mesh."""
+    import torch
+    from repro_torch.distributed import (axis_rules, make_decode_rules,
+                                         make_mesh, make_train_rules, use_mesh)
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg, params, summ, tokens, labels = a2a_build(torch, dev, spec)
+    build_s = time.perf_counter() - t0
+    n_bsr, n_planes = packed_counts(params)
+    plain = a2a_forwards(torch, params, cfg, tokens, dev)
+    measured_plain = a2a_measure(torch, params, cfg, tokens, spec, profile=True)
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    rules = make_train_rules(False)
+    with use_mesh(mesh), axis_rules(rules):
+        cap = a2a_capture(torch, params, cfg, tokens, dev)
+        with CollectiveClock(torch) as clock:
+            got = a2a_forwards(torch, params, cfg, tokens, dev, counted=True)
+        measured = a2a_measure(torch, params, cfg, tokens, spec, profile=True)
+        grads = a2a_grads(torch, params, cfg, tokens, labels)
+    grads_plain = a2a_grads(torch, params, cfg, tokens, labels)
+    grad_err = {path: float((grads[path] - g).abs().max() / g.abs().max())
+                for path, g in grads_plain.items()
+                if g is not None and float(g.abs().max()) > 0}
+    del grads, grads_plain
+    torch.cuda.empty_cache()
+
+    # (c) the engine, no mesh then under the mesh and the decode rules
+    prompts = traffic(cfg.vocab, 0)[:spec["requests"]]
+    gen = spec["gen"]
+
+    def engine():
+        return ServingEngine(params, cfg, num_slots=4, page_size=8,
+                             max_seq_len=max(len(q) for q in prompts) + gen,
+                             ticks_per_sync=4, device=dev, cuda_graphs=True)
+
+    eng0 = engine()
+    run0 = serve_pass(torch, eng0, prompts, gen)
+    with use_mesh(mesh), axis_rules(make_decode_rules(False, shard_cache_seq=False)):
+        eng1 = engine()
+        with CollectiveClock(torch) as engine_clock:
+            run1 = serve_pass(torch, eng1, prompts, gen)
+    same_streams("phase 9 (c): the engine under the mesh vs without it",
+                 run0["done"], run1["done"])
+    solo = serve.verify_streams(params, cfg, run0["done"], gen, device=dev)
+    return dict(
+        build_s=build_s, summary=summ, n_layers=cfg.n_layers,
+        per_forward={"bsr_matmul": n_bsr, "bsr_planes_matmul": n_planes},
+        plain=[t.cpu() if isinstance(t, torch.Tensor) else t for t in plain[:3]],
+        got=[t.cpu() for t in got[:3]], launches=got[3],
+        all_to_all_calls=clock.calls, moe_layers=sum(
+            1 for lp in params["layers"] if "moe" in lp),
+        measured=measured, measured_plain=measured_plain, grad_err=grad_err,
+        engine=dict(requests=len(run1["done"]), solo_bad=solo,
+                    launches=run1["launches"],
+                    decode_ticks=run1["decode_ticks"],
+                    admissions=run1["admissions"],
+                    prefix_hits=eng1.prefix_stats["hit_requests"],
+                    all_to_all_calls=engine_clock.calls,
+                    tok_per_s=run1["tok_per_s"],
+                    tok_per_s_no_mesh=run0["tok_per_s"],
+                    graphs=eng1.analysis_stats()),
+        capture=cap)
+
+
+def a2a_pair(rank, spec):
+    """Phase 9 (b), one of two ranks sharing the card over gloo, mesh
+    (1, 2): ``lm_forward`` / ``lm_prefill`` with 16 experts each, then
+    one ``lm_forward`` at the config's own capacity factor, where slots
+    may drop and both ranks must still hold the same logits."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import (axis_rules, make_mesh, make_train_rules,
+                                         use_mesh)
+    from repro_torch.models import lm_forward
+    dev = torch.device("cuda")
+    mesh = make_mesh((1, 2), ("data", "model"), device_type="cuda")
+    cfg, params, _, tokens, _ = a2a_build(torch, dev, spec)
+    n_bsr, n_planes = packed_counts(params)
+    own = cfg.replace(capacity_factor=get_config(spec["arch"]).capacity_factor)
+    with use_mesh(mesh), axis_rules(make_train_rules(False)):
+        # both ranks capture, so that their collectives pair up
+        cap = a2a_capture(torch, params, cfg, tokens, dev)
+        got = a2a_forwards(torch, params, cfg, tokens, dev, counted=True)
+        measured = a2a_measure(torch, params, cfg, tokens, spec)
+        with torch.no_grad():
+            own_logits, _ = lm_forward(params, {"tokens": tokens}, own)
+    return dict(got=[t.cpu() for t in got[:3]], launches=got[3],
+                per_forward={"bsr_matmul": n_bsr, "bsr_planes_matmul": n_planes},
+                backend=dist.get_backend(), measured=measured,
+                own_cf=own.capacity_factor, own_logits=own_logits.cpu(),
+                capture=cap["planes"] if rank == 0 else None)
+
+
+def a2a_gate_launches(label, got, per_forward):
+    """Each of lm_forward and lm_prefill launched each BSR kernel once per
+    packed weight (planes: once per packed expert weight, 3 per MoE layer)."""
+    for name, run in zip(("lm_forward", "lm_prefill"), got):
+        for kernel, want in per_forward.items():
+            if run[kernel] != want:
+                raise AssertionError(f"phase 9 {label} {name}: {kernel} "
+                                     f"launched {run[kernel]} times, not {want}")
+
+
+def a2a_path(torch, dev, gpu_line, spec=A2A):
+    """Phase 9: (a) and (c) in one NCCL rank, (b) in two gloo ranks on the
+    same card, each a child process through ``run_ranks`` (the kernels
+    were built in phase 1, so the children load them).  Returns (report,
+    {path: launches}, {path: capture for phase 4})."""
+    import tempfile
+    from types import SimpleNamespace
+    from repro_torch.distributed import run_ranks
+    t0 = time.perf_counter()
+    OUT.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        (a,) = run_ranks(a2a_single, 1, backend="nccl", device_type="cuda",
+                         init_file=Path(d) / "init_a", args=(spec,))
+        log(f"  (a)+(c) rank done at {time.perf_counter() - t0:.1f}s of the phase")
+        b = run_ranks(a2a_pair, 2, backend="gloo", device_type="cuda",
+                      init_file=Path(d) / "init_b", args=(spec,))
+    n_layers = a["n_layers"]
+
+    # (a) m = 1 over NCCL: the same logits as moe_apply, exact launches
+    (lf, aux, lp), (pf, paux, pp) = a["got"], a["plain"]
+    errs = {"lm_forward": rel_err(lf, pf), "lm_prefill": rel_err(lp, pp)}
+    aux_err = abs(float(aux) - float(paux))
+    if max(errs.values()) > TOL["float32"] or aux_err > 1e-6:
+        raise AssertionError(f"phase 9 (a): all-to-all vs moe_apply logits "
+                             f"{errs}, aux {aux_err:.3g}")
+    a2a_gate_launches("(a)", a["launches"], a["per_forward"])
+    want_calls = 3 * a["moe_layers"] * 2
+    if a["all_to_all_calls"] != want_calls:
+        raise AssertionError(f"phase 9 (a): {a['all_to_all_calls']} all-to-alls, "
+                             f"not 3 per MoE layer per call = {want_calls}")
+    worst_grad = max(a["grad_err"].values())
+    if worst_grad > A2A_GRAD_TOL:
+        bad = sorted(a["grad_err"].items(), key=lambda kv: -kv[1])[:3]
+        raise AssertionError(f"phase 9 (a): gradients off by {bad}")
+    ma, mp = a["measured"], a["measured_plain"]
+    log(f"  (a) m=1 NCCL mesh (1, 1), {n_layers} layers, B {spec['batch']} x S "
+        f"{spec['seq']}: logits vs moe_apply {errs} (tolerance "
+        f"{TOL['float32']}), aux err {aux_err:.3g}; launches per call "
+        f"{a['launches'][0]} (= {a['per_forward']}); {a['all_to_all_calls']} "
+        f"all-to-alls; gradients (dense params) worst rel err {worst_grad:.3g} "
+        f"over {len(a['grad_err'])} leaves")
+    def busy(m):
+        share = m["device"]["busy_share"]
+        return f"{100 * share:.1f}%" if isinstance(share, float) else share
+
+    log(f"  (a) on {gpu_line}: {ma['ms_per_forward']:.2f} ms per forward "
+        f"through the all-to-all vs {mp['ms_per_forward']:.2f} ms through "
+        f"moe_apply; all-to-all {ma['all_to_all_ms']:.2f} ms = "
+        f"{100 * ma['all_to_all_share']:.1f}% of a forward; card busy "
+        f"{busy(ma)} ({busy(mp)} for moe_apply)"
+        + f"; peak memory {ma['peak_bytes'] / 2**30:.2f} GiB "
+        f"(moe_apply {mp['peak_bytes'] / 2**30:.2f} GiB); build "
+        f"{a['build_s']:.1f}s")
+
+    # (b) m = 2, two ranks sharing the card over gloo
+    for r, out in enumerate(b):
+        (bf, baux, bp) = out["got"]
+        berrs = {"lm_forward": rel_err(bf, lf), "lm_prefill": rel_err(bp, lp)}
+        baux_err = abs(float(baux) - float(aux))
+        if max(berrs.values()) > TOL["float32"] or baux_err > 1e-6:
+            raise AssertionError(f"phase 9 (b) rank {r}: logits vs (a) {berrs}, "
+                                 f"aux {baux_err:.3g}")
+        a2a_gate_launches(f"(b) rank {r}", out["launches"], out["per_forward"])
+    # at the config's own cf the replicas hold model rank 0's y: equal logits
+    if not torch.equal(b[0]["own_logits"], b[1]["own_logits"]):
+        raise AssertionError(f"phase 9 (b): at cf {b[0]['own_cf']} the two "
+                             f"ranks' logits differ")
+    own_vs_a = rel_err(b[0]["own_logits"], lf)
+    mb = b[0]["measured"]
+    log(f"  (b) m=2 two ranks sharing the card over {b[0]['backend']} (the "
+        f"collective staged through the host by gloo; not an NCCL figure): "
+        f"logits and aux == (a) on both ranks; at cf {b[0]['own_cf']} both "
+        f"ranks' logits equal (rel err vs cf {spec['cf']}: {own_vs_a:.3g}, "
+        f"nonzero where slots dropped); "
+        f"launches per call {b[0]['launches'][0]} (= {b[0]['per_forward']}); "
+        f"{mb['ms_per_forward']:.2f} ms per forward, all-to-all "
+        f"{mb['all_to_all_ms']:.2f} ms = {100 * mb['all_to_all_share']:.1f}%, "
+        f"peak memory {mb['peak_bytes'] / 2**30:.2f} GiB per rank")
+
+    # (c) the engine under the mesh and the decode rules
+    c = a["engine"]
+    if c["requests"] != spec["requests"]:
+        raise AssertionError(f"phase 9 (c): {c['requests']} streams, not "
+                             f"{spec['requests']}")
+    if c["solo_bad"]:
+        raise AssertionError(f"phase 9 (c): no-mesh streams {c['solo_bad']} "
+                             "differ from solo decode")
+    if c["prefix_hits"] < 1:
+        raise AssertionError("phase 9 (c): no prefix-cache hit")
+    run = dict(launches=c["launches"], decode_ticks=c["decode_ticks"],
+               admissions=c["admissions"])
+    gate_launches(spec["arch"], "phase 9 (c)", n_layers, run)
+    if c["all_to_all_calls"] != 3 * a["moe_layers"] * c["admissions"]:
+        raise AssertionError(f"phase 9 (c): {c['all_to_all_calls']} all-to-alls,"
+                             f" not 3 per MoE layer per admission")
+    log(f"  (c) engine under the mesh and decode rules, {spec['requests']} "
+        f"requests, graphed: streams == the no-mesh engine's == solo decode; "
+        f"{c['prefix_hits']} prefix-hit requests; launches {c['launches']}; "
+        f"{c['all_to_all_calls']} all-to-alls (3 per MoE layer per admission, "
+        f"{c['admissions']} admissions); {c['tok_per_s']:.1f} tok/s vs "
+        f"{c['tok_per_s_no_mesh']:.1f} without the mesh")
+    secs = time.perf_counter() - t0
+    log(f"  phase 9 took {secs:.1f}s on {gpu_line}")
+    caps = {A2A_PATHS[1]: SimpleNamespace(decode=None, prefill={},
+                                          **a["capture"]),
+            A2A_PATHS[2]: SimpleNamespace(bsr={}, planes=b[0]["capture"],
+                                          decode=None, prefill={})}
+    launches = {A2A_PATHS[1]: {k: sum(run[k] for run in a["launches"])
+                               for k in a["launches"][0]},
+                A2A_PATHS[2]: {k: sum(run[k] for run in b[0]["launches"])
+                               for k in b[0]["launches"][0]}}
+    rep = dict(a=dict(logits_rel_err=errs, aux_err=aux_err,
+                      launches=a["launches"], grad_worst_rel_err=worst_grad,
+                      measured=ma, measured_moe_apply=mp, build_s=a["build_s"],
+                      density=float(a["summary"]["density"]),
+                      nnz_blocks=int(a["summary"]["nnz_blocks"])),
+               b=[dict(launches=o["launches"], measured=o["measured"],
+                       backend=o["backend"]) for o in b],
+               own_cf=dict(cf=b[0]["own_cf"], ranks_equal=True,
+                           rel_err_vs_a=own_vs_a),
+               c=c, seconds=secs)
+    return rep, launches, caps
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -2969,7 +3467,7 @@ SOURCES = {
 
 
 def timings(torch, dev, caps, launches, paper_launches, jamba_launches,
-            family_launches):
+            family_launches, a2a_launches):
     """Every kernel at the captured shapes of each path; returns the
     ``kernels`` line (one headline shape per kernel, launches summed
     over the paths' runs (a) and phase 5; then ``bsr_matmul`` at the
@@ -2978,7 +3476,10 @@ def timings(torch, dev, caps, launches, paper_launches, jamba_launches,
     fp32 pass in phase 7; then phase 8's: the BSR kernel at whisper's
     encoder w_up (gelu alone, M 6000), launches over its fp32 run, and
     qwen2-vl's BSR decode up/gate, paged decode and prefill at G 6,
-    launches over its graphed fp32 steady pass)."""
+    launches over its graphed fp32 steady pass; then phase 9's planes
+    kernel at the all-to-all's expert buffers, (32, 512) at m = 1 and
+    (16, 1024) at m = 2, granite's up projection (1024 -> 512), launches
+    over the counted lm_forward + lm_prefill of (a) and of (b)'s rank 0)."""
     from repro_torch.kernels import _build
     timer = Timer(dev)
     one = torch.zeros(1, device=dev)
@@ -3047,6 +3548,8 @@ def timings(torch, dev, caps, launches, paper_launches, jamba_launches,
         pick("paged_attention_decode", path=VLM_PATH),
         longest_prefill(VLM_PATH),
     ]
+    a2a_heads = [pick("bsr_planes_matmul", path=path, k=1024, n=512,
+                      epilogue="none") for path in A2A_PATHS.values()]
     paper_heads = []
     for path, k, n in PAPER_TIMED:
         found = [r for r in rows if r["name"] == "bsr_matmul"
@@ -3062,7 +3565,9 @@ def timings(torch, dev, caps, launches, paper_launches, jamba_launches,
                       + [(r, {JAMBA_PATH: jamba_launches})
                          for r in jamba_heads]
                       + [(r, {r["path"]: family_launches[r["path"]]})
-                         for r in family_heads]):
+                         for r in family_heads]
+                      + [(r, {r["path"]: a2a_launches[r["path"]]})
+                         for r in a2a_heads]):
         src, rep = SOURCES[r["name"]]
         by_path = {p: n.get(r["name"], 0) for p, n in counts.items()}
         out.append(dict(name=r["name"], route="cuda", source=src, replaces=rep,
@@ -3112,6 +3617,7 @@ def main() -> int:
     check_bsr(torch, dev)
     check_planes(torch, dev)
     check_planes_counts(torch, dev)
+    check_planes_a2a(torch, dev)
     check_attention(torch, dev)
     check_decode_chunks(torch, dev)
     check_norms(torch, dev)
@@ -3181,6 +3687,13 @@ def main() -> int:
     family_rep, family_launches, family_caps = family_path(torch, dev, gpu_line)
     log(f"  phase 8 done at {time.perf_counter() - t_start:.1f}s")
 
+    log("phase 9: the expert-parallel MoE through the all-to-all: "
+        "granite-moe-1b-a400m full width, knapsack 0.75 at 128x128, fp32, "
+        "cf 4.0; (a) m=1 over NCCL, (b) m=2 as two ranks on the card over "
+        "gloo, (c) the engine under the mesh")
+    a2a_rep, a2a_launches, a2a_caps = a2a_path(torch, dev, gpu_line)
+    log(f"  phase 9 done at {time.perf_counter() - t_start:.1f}s")
+
     log("phase 4: kernel times at the main paths' shapes (CUDA events)")
     caps = {a: p[2] for a, p in paths.items()}
     launches = {a: p[3] for a, p in paths.items()}
@@ -3191,8 +3704,9 @@ def main() -> int:
     caps.update(paper_caps)
     caps[JAMBA_PATH] = recurrent_cap
     caps.update(family_caps)
+    caps.update(a2a_caps)
     kernels = timings(torch, dev, caps, launches, paper_launches,
-                      recurrent_launches, family_launches)
+                      recurrent_launches, family_launches, a2a_launches)
 
     REPORT.update(gpu=gpu_line, torch=torch.__version__, cuda=torch.version.cuda,
                   build_seconds=secs,
@@ -3200,6 +3714,7 @@ def main() -> int:
                               for a, p in paths.items()},
                   serving=serving, train_path=train_rep, paper_path=paper_rep,
                   recurrent_path=recurrent_rep, family_path=family_rep,
+                  a2a_path=a2a_rep,
                   kernels=kernels, seconds=time.perf_counter() - t_start)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

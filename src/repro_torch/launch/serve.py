@@ -390,7 +390,7 @@ def _run_static(args, cfg, params, device) -> int:
     from repro_torch.models import (encode_kv_caches, encoder_forward,
                                     init_caches, lm_generate, lm_prefill)
 
-    b, plen = args.batch, max(args.prompt_len, 1)
+    b, plen = args.batch, args.prompt_len
     prompt, frames = static_inputs(cfg, batch=b, prompt_len=plen,
                                    seed=args.seed, device=device)
 
@@ -399,13 +399,22 @@ def _run_static(args, cfg, params, device) -> int:
     key = prng.split(prng.PRNGKey(args.seed), 4)[3]
 
     def once():
-        caches = init_caches(cfg, b, plen + args.gen, torch.float32, device)
+        caches = init_caches(cfg, b, max(plen + args.gen, 1), torch.float32,
+                             device)
         with torch.no_grad():
             if frames is not None:       # whisper: encode once, cross K/V
                 enc = encoder_forward(params, frames, cfg)
                 caches = encode_kv_caches(params, enc, cfg, caches)
-            logits, caches = lm_prefill(params, caches, {"tokens": prompt}, cfg)
-            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            _sync(device)
+            t0 = time.perf_counter()
+            if plen > 0:
+                logits, caches = lm_prefill(params, caches, {"tokens": prompt},
+                                            cfg)
+                tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            else:
+                # empty prompt: generation starts from token 0 (a stand-in
+                # BOS) at cache length 0, as in the reference
+                tok = torch.zeros((b, 1), dtype=torch.int32, device=device)
             _sync(device)
             t1 = time.perf_counter()
             toks, _ = lm_generate(params, caches, tok, plen, args.gen, cfg,
@@ -413,13 +422,14 @@ def _run_static(args, cfg, params, device) -> int:
                                   top_k=args.top_k, top_p=args.top_p,
                                   eos_id=args.eos_id, key=key)
             out = toks.cpu().numpy()
-        return out, time.perf_counter() - t1
+        return out, t1 - t0, time.perf_counter() - t1
 
     once()                 # warm-up
     t0 = time.perf_counter()
-    gen, dt_dec = once()
+    gen, dt_pre, dt_dec = once()
     dt = max(time.perf_counter() - t0, 1e-9)
-    print(f"generated {gen.shape} tokens on {device} in {dt:.3f}s (decode "
+    print(f"generated {gen.shape} tokens on {device} in {dt:.3f}s (prefill "
+          f"{dt_pre * 1e3:.1f}ms, decode "
           f"{args.gen * b / max(dt_dec, 1e-9):.1f} tok/s aggregate)")
     if gen.shape[1]:
         print("sample:", gen[0][:16])

@@ -17,8 +17,11 @@ are then packed and the packed forward is held against the masked dense
 one.
 
 The run is on the card unless ``--device cpu`` is given; without a card
-it fails rather than fall back.  ``--mesh single|multi`` (multi-device
-training) is not ported yet and raises.
+it fails rather than fall back.  ``--mesh single|multi`` builds the
+production mesh (``launch/mesh.py``), which raises its ``RuntimeError``
+on a world smaller than 256 or 512 ranks, as the reference's launcher
+does on fewer devices; training over a built mesh is not ported yet and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -145,9 +148,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from repro_torch.device import resolve_device
 
     if args.mesh != "none":
+        from repro_torch.launch.mesh import make_production_mesh
+
+        # raises on a world smaller than the mesh, as the reference does
+        make_production_mesh(multi_pod=args.mesh == "multi")
         raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-device training is not ported to "
-            "torch yet; run with --mesh none on one device")
+            f"--mesh {args.mesh}: data-parallel training over the mesh (the "
+            "reference's LMPipeline(..., mesh=mesh)) is not ported to torch "
+            "yet; run with --mesh none on one device")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:

@@ -12,9 +12,14 @@ decoder layer cross-attention over its output, whose K/V
 decode.  A VLM config (qwen2-vl) rotates by M-RoPE over (B, S, 3)
 positions and lets ``batch["patch_embeds"]`` (B, P, D) replace the
 first P token embeddings.  ``cfg.logits_softcap`` caps every logit.
-The multi-device MoE all-to-all and mixer "none" raise until they are
-ported (``_check_ported``).  ``lm_forward`` (:321) is the cache-free
-training/eval forward, differentiable, with each layer under
+Mixer "none" is the reference's zero mixer (no params, no cache, a zero
+update).  With ``cfg.moe_impl == "alltoall"`` under an installed mesh
+with a "model" axis and a rule set (``distributed.use_mesh`` /
+``axis_rules``), the non-decode MoE layers of ``lm_forward`` and
+``lm_prefill`` run the expert-parallel all-to-all
+(``moe_alltoall.moe_alltoall_apply``); decode keeps ``moe_decode``, as
+in the reference (:281-286, :494, :620-625).  ``lm_forward`` (:321) is
+the cache-free training/eval forward, differentiable, with each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat`` is not "none" (the
 counterpart of ``_remat_wrap`` :297); ``cross_entropy_loss`` (:366) adds
 the z-loss.  ``lm_forward``, ``lm_prefill``
@@ -42,6 +47,8 @@ import torch.utils.checkpoint
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (axis_rules, current_mesh,
+                                              current_rules, use_mesh)
 from .attention import (
     _split_heads,
     attention_apply,
@@ -65,6 +72,7 @@ from .layers import (
 )
 from .mamba import init_mamba_cache, mamba_apply, mamba_decode, mamba_init, mamba_prefill
 from .moe import moe_apply, moe_decode, moe_init
+from .moe_alltoall import alltoall_available, moe_alltoall_apply
 from .xlstm import (
     init_mlstm_cache,
     init_slstm_cache,
@@ -126,16 +134,12 @@ def _check_ported(cfg: ModelConfig) -> List[LayerSpec]:
         raise NotImplementedError(f"{cfg.name}: {cfg.norm_type} is not ported yet")
     specs = _stack_specs(cfg)
     for spec in specs:
-        if spec.mixer not in ("attn", "mamba", "mlstm", "slstm"):
+        if spec.mixer not in ("attn", "mamba", "mlstm", "slstm", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: mixer {spec.mixer!r} is not ported to torch yet")
         if spec.mlp not in ("dense", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: mlp {spec.mlp!r} is not ported to torch yet")
-    if cfg.moe_impl == "alltoall" and any(sp.mlp == "moe" for sp in specs):
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl='alltoall' (expert-parallel all-to-all "
-            "across devices) is not ported to torch yet")
     return specs
 
 
@@ -162,6 +166,8 @@ def _init_mixer(spec: LayerSpec, cfg: ModelConfig, kw) -> Dict:
     if spec.mixer == "mlstm":
         return {"mlstm": mlstm_init(cfg.d_model, cfg.n_heads,
                                     proj_factor=cfg.mlstm_proj_factor, **kw)}
+    if spec.mixer == "none":
+        return {}
     return {"slstm": slstm_init(cfg.d_model, cfg.n_heads, **kw)}
 
 
@@ -235,6 +241,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
             d_in -= d_in % cfg.n_heads
             caches.append(init_mlstm_cache(batch, cfg.n_heads,
                                            d_in // cfg.n_heads, device))
+        elif spec.mixer == "none":
+            caches.append({})
         else:
             caches.append(init_slstm_cache(batch, cfg.d_model, device))
     return caches
@@ -261,6 +269,9 @@ def _mlp(lp: Dict, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor, *,
               activation=cfg.activation)
     if decode:
         y, aux = moe_decode(lp["moe"], xn, **kw)
+    elif cfg.moe_impl == "alltoall" and alltoall_available(cfg.moe_experts):
+        y, aux = moe_alltoall_apply(lp["moe"], xn,
+                                    capacity_factor=cfg.capacity_factor, **kw)
     else:
         y, aux = moe_apply(lp["moe"], xn, capacity_factor=cfg.capacity_factor, **kw)
     return x + y, aux
@@ -290,6 +301,8 @@ def _apply_layer(lp: Dict, x: torch.Tensor, positions: Optional[torch.Tensor],
         h = mamba_apply(lp["mamba"], xn, chunk=cfg.ssm_chunk)
     elif spec.mixer == "mlstm":
         h = mlstm_apply(lp["mlstm"], xn, num_heads=cfg.n_heads, chunk=cfg.ssm_chunk)
+    elif spec.mixer == "none":
+        h = torch.zeros_like(xn)
     else:
         h = slstm_apply(lp["slstm"], xn, num_heads=cfg.n_heads)
     x, aux = _mlp(lp, spec, cfg, x + h)
@@ -298,14 +311,23 @@ def _apply_layer(lp: Dict, x: torch.Tensor, positions: Optional[torch.Tensor],
     return x, aux
 
 
+def _in_context(fn, mesh, rules, *args):
+    with use_mesh(mesh), axis_rules(rules):
+        return fn(*args)
+
+
 def _run_layer(lp, x, positions, enc_out, spec: LayerSpec, cfg: ModelConfig):
     """``_apply_layer``, recomputed in the backward pass when
     ``cfg.remat`` is not "none" (``torch.utils.checkpoint``,
-    non-reentrant)."""
+    non-reentrant).  The recomputation runs under the mesh and rules of
+    the forward: the backward of CUDA tensors runs on autograd's own
+    thread, which does not see this thread's context, and would route
+    the MoE otherwise."""
     layer = functools.partial(_apply_layer, spec=spec, cfg=cfg)
     if cfg.remat != "none" and torch.is_grad_enabled():
         return torch.utils.checkpoint.checkpoint(
-            layer, lp, x, positions, enc_out, use_reentrant=False)
+            functools.partial(_in_context, layer, current_mesh(), current_rules()),
+            lp, x, positions, enc_out, use_reentrant=False)
     return layer(lp, x, positions, enc_out)
 
 
@@ -427,6 +449,8 @@ def lm_decode(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
             h, _ = mamba_decode(lp["mamba"], xn, cache)
         elif spec.mixer == "mlstm":
             h, _ = mlstm_decode(lp["mlstm"], xn, cache, num_heads=cfg.n_heads)
+        elif spec.mixer == "none":
+            h = torch.zeros_like(x)
         else:
             h, _ = slstm_decode(lp["slstm"], xn, cache, num_heads=cfg.n_heads)
         x, _ = _mlp(lp, spec, cfg, x + h, decode=True)
@@ -479,6 +503,8 @@ def lm_prefill(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
         elif spec.mixer == "mlstm":
             h, _ = mlstm_prefill(lp["mlstm"], xn, cache, num_heads=cfg.n_heads,
                                  chunk=cfg.ssm_chunk)
+        elif spec.mixer == "none":
+            h = torch.zeros_like(x)
         else:
             h, _ = slstm_prefill(lp["slstm"], xn, cache, num_heads=cfg.n_heads)
         x, _ = _mlp(lp, spec, cfg, x + h)

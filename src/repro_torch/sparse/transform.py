@@ -1,7 +1,9 @@
 """Params-tree sparse execution transform, torch port.
 
-Counterpart of ``pack_params``, ``unpack_params`` and
-``sparsity_summary`` in ``src/repro/sparse/transform.py``.  ``pack_params`` replaces each
+Counterpart of ``pack_params``, ``unpack_params``, ``sparsity_summary``
+and ``planes_pspec`` in ``src/repro/sparse/transform.py``, plus the
+expert slicing that ``planes_pspec`` implies (``shard_experts``).
+``pack_params`` replaces each
 prunable 2-D ``kernel`` leaf with a ``BSRWeight`` and each 3-D (expert)
 leaf with a ``BSRPlanes``, packed on the weight's own device, so every
 projection routes through the BSR kernel at ``models/layers.matmul`` and
@@ -23,7 +25,10 @@ from repro_torch.core.structures import (
     iter_leaves,
 )
 
-__all__ = ["pack_params", "unpack_params", "is_packed_leaf", "sparsity_summary"]
+__all__ = ["pack_params", "unpack_params", "is_packed_leaf", "sparsity_summary",
+           "planes_pspec", "shard_experts"]
+
+_PLANES_ARRAYS = ("indices", "slots", "blocks", "flat_rows", "flat_cols")
 
 
 def is_packed_leaf(x: Any) -> bool:
@@ -99,3 +104,45 @@ def sparsity_summary(packed: Mapping[str, Any]) -> Dict[str, Any]:
         "total_blocks": int(total),
         "density": nnz / max(total, 1),
     }
+
+
+def planes_pspec(leaf: Any, plane_axis: str):
+    """Which dims of an expert-weight leaf go on ``plane_axis``: a dense
+    (E, D, F) stack shards its plane dim, ``(plane_axis, None, None)``; a
+    ``BSRPlanes`` leaf gets ``{array name: spec}`` with the plane dim of
+    every component array on the axis (the per-plane index maps and tile
+    stores ride along whole within a shard)."""
+    if isinstance(leaf, BSRPlanes):
+        return {name: (plane_axis,) + (None,) * (getattr(leaf, name).ndim - 1)
+                for name in _PLANES_ARRAYS}
+    return (plane_axis, None, None)
+
+
+def _slice_planes(leaf: Any, lo: int, hi: int) -> Any:
+    if isinstance(leaf, BSRPlanes):
+        return BSRPlanes(
+            **{name: getattr(leaf, name)[lo:hi] for name in _PLANES_ARRAYS},
+            shape=(hi - lo, *leaf.shape[1:]), blocking=leaf.blocking,
+            plane_nnz=leaf.plane_nnz[lo:hi])
+    return leaf[lo:hi]
+
+
+def shard_experts(moe_params: Mapping[str, Any], rank: int,
+                  size: int) -> Dict[str, Any]:
+    """The experts of shard ``rank`` of ``size`` along the plane dim, as
+    ``planes_pspec`` lays them out: experts ``[rank * E / size, (rank + 1)
+    * E / size)`` of every ``experts_*`` leaf, dense or ``BSRPlanes``
+    (every component array sliced, ``shape[0]`` and ``plane_nnz`` sliced
+    to match).  The router stays whole.  The slices are views."""
+    out: Dict[str, Any] = {}
+    for name, leaf in moe_params.items():
+        if not name.startswith("experts_"):
+            out[name] = leaf
+            continue
+        e = int(leaf.shape[0])
+        if e % size:
+            raise ValueError(f"shard_experts: {e} experts of {name} do not "
+                             f"split over {size} shards")
+        per = e // size
+        out[name] = _slice_planes(leaf, rank * per, (rank + 1) * per)
+    return out

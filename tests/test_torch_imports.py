@@ -47,7 +47,10 @@ def test_port_imports_neither_jax_nor_reference_package():
             "paper/prune_jets.py", "models/mamba.py", "models/xlstm.py",
             "configs/jamba_v0_1_52b.py", "configs/xlstm_350m.py",
             "configs/whisper_tiny.py", "configs/qwen2_vl_2b.py",
-            "configs/mixtral_8x7b.py", "configs/command_r_plus_104b.py"} <= scanned
+            "configs/mixtral_8x7b.py", "configs/command_r_plus_104b.py",
+            "distributed/__init__.py", "distributed/sharding.py",
+            "distributed/spawn.py", "models/moe_alltoall.py",
+            "optim/compression.py", "launch/mesh.py"} <= scanned
     for path in _port_files():
         for lineno, mod in _imported_modules(path):
             if mod.split(".")[0] in FORBIDDEN:
@@ -89,15 +92,58 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_archs_and_mixers_raise():
-    """Only mixer 'none' and the MoE all-to-all still raise; M-RoPE,
+    """Nothing of the model stack raises any more.  The zero mixer
+    ("none") matches the reference's ``lm_forward`` and ``lm_decode`` on
+    bridged params; granite with ``moe_impl="alltoall"`` builds and, with
+    no mesh installed, runs ``moe_apply`` (as the reference does); M-RoPE,
     encoder-decoder stacks, logit softcap, every registered arch and the
     recurrent and hybrid archs build on the CPU."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs import get_config as jget_config
+    from repro.configs import make_smoke as jmake_smoke
+    from repro.models import init_caches as jinit_caches
+    from repro.models import init_params as jinit_params
+    from repro.models import lm_decode as jlm_decode
+    from repro.models import lm_forward as jlm_forward
+    from repro_torch.bridge import params_from_reference
+    from repro_torch.models import lm_decode, lm_forward
+    from repro_torch.models.moe import moe_apply
+
     qwen = make_smoke(get_config("qwen1.5-0.5b"))
-    with pytest.raises(NotImplementedError, match="mixer 'none'"):
-        init_params(qwen.replace(mixer_pattern=("none",)), device="cpu")
+    none = qwen.replace(mixer_pattern=("none",))
+    jnone = jmake_smoke(jget_config("qwen1.5-0.5b")).replace(mixer_pattern=("none",))
+    jparams = jinit_params(jax.random.PRNGKey(0), jnone)
+    params = params_from_reference(jparams, "cpu")
+    assert all(set(lp) == {"pre_norm", "post_norm", "mlp"} for lp in params["layers"])
+    tokens = np.random.default_rng(0).integers(0, none.vocab, size=(2, 6))
+    want, _ = jlm_forward(jparams, {"tokens": jnp.asarray(tokens)}, jnone)
+    with torch.no_grad():
+        got, _ = lm_forward(params, {"tokens": torch.from_numpy(tokens)}, none)
+        caches = init_caches(none, 2, 8, torch.float32, "cpu")
+        assert caches == [{}] * none.n_layers
+        dgot, _ = lm_decode(params, caches, {"tokens": torch.from_numpy(tokens[:, :1])},
+                            3, none)
+    dwant, _ = jlm_decode(jparams, jinit_caches(jnone, 2, 8, jnp.float32),
+                          {"tokens": jnp.asarray(tokens[:, :1])},
+                          jnp.asarray(3, jnp.int32), jnone)
+    for g, w in ((got, want), (dgot, dwant)):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * max(1.0, np.abs(w).max())
+
     cfg = make_smoke(get_config("granite-moe-1b-a400m"), moe_impl="alltoall")
-    with pytest.raises(NotImplementedError, match="alltoall"):
-        init_params(cfg, device="cpu")
+    gparams = init_params(cfg, device="cpu")
+    toks = {"tokens": torch.from_numpy(tokens)}
+    with torch.no_grad():
+        got, aux = lm_forward(gparams, toks, cfg)
+        want, waux = lm_forward(gparams, toks, cfg.replace(moe_impl="gspmd"))
+        lp = gparams["layers"][0]
+        x = torch.randn((2, 6, cfg.d_model), generator=torch.Generator().manual_seed(0))
+        y, _ = moe_apply(lp["moe"], x, num_experts=cfg.moe_experts,
+                         top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
+    assert torch.equal(got, want) and torch.equal(aux["moe_aux"], waux["moe_aux"])
+    assert y.shape == x.shape
     for over, key in ((dict(mrope_sections=(4, 6, 6)), "layers"),
                       (dict(enc_layers=2), "encoder"),
                       (dict(logits_softcap=30.0), "layers")):

@@ -296,6 +296,8 @@ def test_train_launcher_smoke_trains_and_prunes(tmp_path, capsys):
     assert rc == 0
     assert "done: step=4 preempted=False" in out and "loss " in out
     assert "prune it=0 " in out and "packed:" in out
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # the production mesh needs 256 ranks; this process is a world of 1
+    with pytest.raises(RuntimeError, match=r"mesh \(16, 16\) needs 256 devices "
+                                           r"but only 1 are visible"):
         train_launcher.main(["--arch", "qwen1.5-0.5b", "--smoke", "--device", "cpu",
                              "--mesh", "single"])
