@@ -244,6 +244,24 @@ Phases, any failure ends the run with a non-zero exit code:
    without the mesh and the phase's seconds; phase 4 times the planes
    kernel at the captured expert buffers of (a) and of (b)'s rank 0.
 
+10. (run before phase 4) the sharded program and its dry-run, in child
+   processes: (a) one NCCL rank, mesh (1, 1): full-width qwen1.5-0.5b in
+   phase 5's dtypes (bf16, fp32 master, remat), B 8 x S 128, 3 train
+   steps on plain state and 3 on DTensor state placed by
+   ``launch.specs.cell_shardings`` under the train rules, the losses
+   within phase 5's resume tolerance, and the per-rank counter over one
+   DTensor step equal, FLOPs, bytes and collectives, to the dry-run's
+   fake trace of the same cell (a child process on a fake group of one
+   rank); ms per step both ways, the card's busy share, peak memory
+   against the trace's; (b) two gloo ranks sharing the card, mesh (1, 2)
+   (tensor parallelism over "model"), one fp32 step of (a)'s params with
+   AdamW in its linear regime, the loss within 1e-5 and every updated
+   leaf within 1e-4 of its max of the plain step's (every collective
+   staged through the host: gloo's CPU path); (c) ``launch.dryrun`` of
+   qwen1.5-0.5b and granite-moe-1b-a400m, train_4k and decode_32k, on
+   the 256-rank fake group at full width (CPU only, started first and
+   overlapping (a) and (b)), every record "ok".
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository beside it, the script exits non-zero and prints
 no result.  Details go to ``build/chip_smoke.json``.
@@ -3155,6 +3173,373 @@ def a2a_path(torch, dev, gpu_line, spec=A2A):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the sharded program (DTensor) and its dry-run
+# ---------------------------------------------------------------------------
+
+# phase 5's cell: full-width qwen1.5-0.5b in its own dtypes (bf16, fp32
+# master, remat), B 8 x S 128, 3 steps each way; (b) one fp32 step
+MESH = dict(arch="qwen1.5-0.5b", batch=8, seq=128, steps=3, seed=0,
+            smoke=False, device="cuda")
+MESH_LOSS_TOL = 1e-2       # (a), DTensor vs plain losses: phase 5's resume gate
+MESH_TP_LOSS_TOL = 1e-5    # (b), relative, the first step's loss
+MESH_TP_PARAM_TOL = 1e-4   # (b), each leaf's max |diff| over its max |value|
+# (c): the dry-run's cells, on the 256-rank fake group, single pod
+MESH_DRYRUN = dict(archs=("qwen1.5-0.5b", "granite-moe-1b-a400m"),
+                   shapes=("train_4k", "decode_32k"))
+
+
+def mesh_config(spec):
+    from repro_torch.configs import get_config, make_smoke
+    cfg = get_config(spec["arch"])
+    if spec["smoke"]:          # a CPU rehearsal at smoke widths, its dtypes kept
+        cfg = make_smoke(cfg, remat=cfg.remat, param_dtype=cfg.param_dtype,
+                         activ_dtype=cfg.activ_dtype)
+    return cfg
+
+
+def sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def mesh_cell(torch, cfg, dev, mesh):
+    """The train cell of ``MESH`` as the dry-run builds it
+    (``dryrun.trace_cell``), on real tensors: the seeded state placed by
+    ``cell_shardings`` on ``mesh``, the step, and the pipeline placing
+    each batch over "data".  Returns (cell, state, step, pipeline)."""
+    from repro_torch.configs.base import ShapeCell, input_specs
+    from repro_torch.data import LMPipeline, TokenTask
+    from repro_torch.distributed import distribute_tree
+    from repro_torch.launch.specs import cell_shardings
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.train import init_train_state, make_train_step
+    cell = ShapeCell("mesh_phase", "train", MESH["seq"], MESH["batch"])
+    opt = AdamWConfig(use_master=cfg.param_dtype != "float32")
+    state = init_train_state(init_params(cfg, seed=MESH["seed"], device=dev), opt)
+    if mesh is not None:
+        sh = cell_shardings(cfg, cell, mesh, False, input_specs(cfg, cell),
+                            state_shapes=state)
+        state = distribute_tree(state, sh["state"], mesh)
+    step = make_train_step(cfg, opt, warmup_cosine(3e-4, 100, 10000))
+    pipe = LMPipeline(TokenTask(vocab=cfg.vocab, seed=MESH["seed"]),
+                      MESH["batch"], MESH["seq"], device=dev, mesh=mesh,
+                      prefetch=0)
+    return cell, state, step, pipe
+
+
+def mesh_steps(torch, state, step, pipe, n):
+    """``n`` steps from ``state``: (losses, wall ms per step, state)."""
+    losses, ms = [], []
+    for s in range(n):
+        batch = pipe.batch_at(s)
+        sync(torch)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = metrics["loss"]
+        losses.append(float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                            else loss))
+        sync(torch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, state
+
+
+def mesh_single(rank, spec):
+    """Phase 10 (a), one NCCL rank on a (1, 1) mesh: ``MESH["steps"]``
+    plain steps, the same steps on DTensor state under the train rules
+    (one more counted by the per-rank counter and profiled), peak memory."""
+    import faulthandler
+
+    import torch
+    from repro_torch.distributed import axis_rules, make_mesh, make_train_rules, use_mesh
+    from repro_torch.distributed.cost import CostCounter
+    faulthandler.enable()
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    cfg = mesh_config(spec)
+    _, state, step, pipe = mesh_cell(torch, cfg, dev, None)
+    plain, plain_ms, last = mesh_steps(torch, state, step, pipe, spec["steps"])
+    del state, last
+    if cuda:
+        torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+    _, dstate, step, pipe = mesh_cell(torch, cfg, dev, mesh)
+    with use_mesh(mesh), axis_rules(make_train_rules(False)):
+        sharded, sharded_ms, last = mesh_steps(torch, dstate, step, pipe,
+                                               spec["steps"])
+        del last                  # the counted step holds one state, as traced
+        batch = pipe.batch_at(0)
+        sync(torch)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with CostCounter(live=(dstate, batch)) as counter:
+            step(dstate, batch)
+        sync(torch)
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+
+        def run():
+            step(dstate, batch)
+            sync(torch)
+        busy = device_busy(torch, run, statistics.median(sharded_ms[1:]) / 1e3)
+    return dict(plain=plain, plain_ms=plain_ms, sharded=sharded,
+                sharded_ms=sharded_ms, counts=counter.summary(),
+                peak_bytes=peak, device=busy)
+
+
+def mesh_pair(rank, spec):
+    """Phase 10 (b), one of two gloo ranks sharing the card on a (1, 2)
+    mesh (tensor parallelism over "model"): one fp32 train step from
+    (a)'s params (bf16 init, widened) with AdamW in its linear regime (eps
+    1, no weight decay, lr 1: an update carries its gradient's precision);
+    rank 0 also takes the same step unsharded.  Every collective runs on
+    host copies (``staged_collectives``)."""
+    import faulthandler
+
+    import torch
+    from repro_torch.core.masks import map_tree
+    from repro_torch.core.structures import iter_leaves
+    from repro_torch.data import LMPipeline, TokenTask
+    from repro_torch.distributed import (axis_rules, distribute_tree, gather_tree,
+                                         make_mesh, make_train_rules, use_mesh)
+    from repro_torch.distributed.cost import CostCounter
+    from repro_torch.launch.specs import state_pspecs
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, constant_lr
+    from repro_torch.train import init_train_state, make_train_step
+    faulthandler.enable()
+    dev = torch.device(spec["device"])
+    mesh = make_mesh((1, 2), ("data", "model"), device_type=dev.type)
+    cfg = mesh_config(spec)
+    params = map_tree(lambda t: t.float(),
+                      init_params(cfg, seed=spec["seed"], device=dev))
+    cfg = cfg.replace(param_dtype="float32", activ_dtype="float32")
+    opt = AdamWConfig(use_master=False, eps=1.0, weight_decay=0.0)
+    step = make_train_step(cfg, opt, constant_lr(1.0))
+    state = init_train_state(params, opt)
+    dstate = distribute_tree(state, state_pspecs(state, mesh), mesh)
+    if rank != 0:                      # rank 0 alone takes the plain step
+        del state, params
+    pipe = LMPipeline(TokenTask(vocab=cfg.vocab, seed=spec["seed"]),
+                      spec["batch"], spec["seq"], device=dev, prefetch=0)
+    batch = pipe.batch_at(0)
+    dbatch = distribute_tree(batch, {k: ("data", None) for k in batch}, mesh)
+    with use_mesh(mesh), axis_rules(make_train_rules(False)), \
+            staged_collectives(torch) as staged:
+        with CostCounter() as counter:                        # warm, counted
+            step(dstate, dbatch)
+        sync(torch)
+        staged.seconds = 0.0
+        t0 = time.perf_counter()
+        new, metrics = step(dstate, dbatch)
+        loss = float(metrics["loss"].full_tensor())
+        sync(torch)
+        ms = (time.perf_counter() - t0) * 1e3
+        collective_ms = staged.seconds * 1e3
+        got = gather_tree(new["params"])
+    cuda = dev.type == "cuda"
+    out = dict(loss=loss, ms=ms, collective_ms=collective_ms,
+               collectives=counter.collective_counts(),
+               peak_bytes=torch.cuda.max_memory_allocated() if cuda else 0)
+    if rank == 0:
+        del dstate, new
+        if cuda:
+            torch.cuda.empty_cache()
+        want_state, want_metrics = step(state, batch)
+        out["plain_loss"] = float(want_metrics["loss"])
+        errs = {}
+        want = dict(iter_leaves(want_state["params"]))
+        for path, g in iter_leaves(got):
+            w = want[path]
+            errs[path] = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        out["param_err"] = errs
+    return out
+
+
+def staged_collectives(torch):
+    """A dispatch mode for phase 10 (b): every functional collective of
+    the code under it (DTensor's) runs on host copies of its card inputs
+    and its result goes back to the card, as gloo must run it for two
+    ranks on one card (its CPU path; gloo does not take every collective
+    on CUDA tensors), and is timed from a synchronised card to the
+    result back on it (``.seconds``, ``.calls``)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_map
+
+    wait = torch.ops._c10d_functional.wait_tensor
+
+    class Staged(TorchDispatchMode):
+        seconds, calls = 0.0, 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            name = getattr(func, "_overloadpacket", func).__name__
+            if getattr(func, "namespace", "") not in (
+                    "_c10d_functional", "c10d_functional") or name == "wait_tensor":
+                return func(*args, **kwargs)
+            devs = [a.device for a in args if isinstance(a, torch.Tensor)]
+            sync(torch)
+            t0 = time.perf_counter()
+            host = tree_map(lambda a: a.cpu() if isinstance(a, torch.Tensor) else a,
+                            args)
+            out = tree_map(lambda t: wait(t).to(devs[0]) if isinstance(
+                t, torch.Tensor) else t, func(*host, **kwargs))
+            sync(torch)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+    return Staged()
+
+
+def mesh_fake_counts(spec):
+    """The dry-run's trace of (a)'s cell on a fake group of one rank
+    ((1, 1) mesh, fake CUDA tensors) in a child process: its counter's
+    summary."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "from chip_smoke import MESH, mesh_config\n"
+        "from repro_torch.configs.base import ShapeCell\n"
+        "from repro_torch.launch.dryrun import count_cell\n"
+        f"spec = {dict(spec)!r}\n"
+        "cell = ShapeCell('mesh_phase', 'train', spec['seq'], spec['batch'])\n"
+        "out = count_cell(mesh_config(spec), cell, (1, 1), device=spec['device'])\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"phase 10 (a): the dry-run's trace failed:\n"
+                             f"{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def mesh_gate_single(a, fake, spec, gpu_line):
+    """Phase 10 (a)'s gates and report: DTensor losses within phase 5's
+    resume tolerance of the plain ones, the counter on the card equal to
+    the dry-run's fake trace."""
+    errs = [abs(x - y) / abs(y) for x, y in zip(a["sharded"], a["plain"])]
+    if max(errs) > MESH_LOSS_TOL:
+        raise AssertionError(f"phase 10 (a): DTensor losses {a['sharded']} vs "
+                             f"plain {a['plain']} (relative {errs})")
+    real = a["counts"]
+    for key in ("flops", "bytes_accessed", "collectives"):
+        if real[key] != fake[key]:
+            raise AssertionError(f"phase 10 (a): the counter on the card "
+                                 f"({key} {real[key]}) differs from the "
+                                 f"dry-run's fake trace ({fake[key]})")
+    share = a["device"]["busy_share"]
+    log(f"  (a) {spec['arch']} full width (bf16, fp32 master, remat), B "
+        f"{spec['batch']} x S {spec['seq']}, one NCCL rank, mesh (1, 1): "
+        f"losses DTensor {[round(x, 6) for x in a['sharded']]} vs plain "
+        f"{[round(x, 6) for x in a['plain']]} (worst relative {max(errs):.2e}, "
+        f"gate {MESH_LOSS_TOL}); counter == dry-run trace: flops "
+        f"{real['flops']:.6e}, bytes {real['bytes_accessed']:.6e}, "
+        f"collectives {real['collectives']}")
+    log(f"  (a) on {gpu_line}: ms per step (steps 2-{spec['steps']}) DTensor "
+        f"{statistics.median(a['sharded_ms'][1:]):.1f} vs plain "
+        f"{statistics.median(a['plain_ms'][1:]):.1f} (first step "
+        f"{a['sharded_ms'][0]:.0f} / {a['plain_ms'][0]:.0f}); card busy "
+        + (f"{100 * share:.1f}% of a DTensor step" if isinstance(share, float)
+           else f"not measured ({a['device'].get('error')})")
+        + f"; peak memory of a step {a['peak_bytes'] / 1e9:.2f} GB vs the "
+        f"dry-run's predicted {fake['peak_bytes'] / 1e9:.2f} GB; the trace "
+        f"took {fake['compile_s']:.1f}s")
+
+
+def mesh_gate_pair(b):
+    """Phase 10 (b)'s gates and report.  Returns (loss error, worst
+    param error)."""
+    b0 = b[0]
+    loss_err = abs(b0["loss"] - b0["plain_loss"]) / abs(b0["plain_loss"])
+    worst = max(b0["param_err"].values())
+    if loss_err > MESH_TP_LOSS_TOL or worst > MESH_TP_PARAM_TOL:
+        bad = sorted(b0["param_err"].items(), key=lambda kv: -kv[1])[:3]
+        raise AssertionError(f"phase 10 (b): loss relative {loss_err:.3g}, "
+                             f"params {bad}")
+    if b[1]["loss"] != b0["loss"]:
+        raise AssertionError(f"phase 10 (b): the ranks' losses differ: "
+                             f"{b0['loss']} vs {b[1]['loss']}")
+    log(f"  (b) fp32 step, two gloo ranks sharing the card, mesh (1, 2): loss "
+        f"{b0['loss']:.6f} vs plain {b0['plain_loss']:.6f} (relative "
+        f"{loss_err:.2e}, gate {MESH_TP_LOSS_TOL}); updated params worst "
+        f"{worst:.2e} of a leaf's max over {len(b0['param_err'])} leaves (gate "
+        f"{MESH_TP_PARAM_TOL}); collectives {b0['collectives']}; "
+        f"{b0['ms']:.0f} ms per step, {b0['collective_ms']:.0f} ms of it in the "
+        f"collectives ({100 * b0['collective_ms'] / b0['ms']:.1f}%; each staged "
+        f"through the host for gloo, no NCCL figure); peak "
+        f"{b0['peak_bytes'] / 1e9:.2f} GB a rank")
+    return loss_err, worst
+
+
+def mesh_path(torch, dev, gpu_line, spec=MESH):
+    """Phase 10: (c) the dry-run of two archs on the 256-rank fake group
+    (CPU only, child processes started first), (a) one NCCL rank, (b) two
+    gloo ranks on the card; the gates and the report."""
+    import tempfile
+    from repro_torch.distributed import run_ranks
+    t0 = time.perf_counter()
+    OUT.mkdir(exist_ok=True)
+    dry_out = OUT / "dryrun_phase10"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    dry = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", ",".join(MESH_DRYRUN["shapes"]), "--mesh", "single",
+         "--out", str(dry_out), "--force"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for arch in MESH_DRYRUN["archs"]}
+    try:
+        fake = mesh_fake_counts(spec)
+        cuda = spec["device"] == "cuda"
+        with tempfile.TemporaryDirectory(dir=OUT) as d:
+            (a,) = run_ranks(mesh_single, 1, backend="nccl" if cuda else "gloo",
+                             device_type=spec["device"],
+                             init_file=Path(d) / "init_a", args=(spec,))
+            mesh_gate_single(a, fake, spec, gpu_line)
+            b = run_ranks(mesh_pair, 2, backend="gloo", device_type=spec["device"],
+                          init_file=Path(d) / "init_b", args=(spec,))
+            loss_err, worst = mesh_gate_pair(b)
+        for arch, proc in dry.items():
+            stdout, stderr = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 10 (c): the dry-run of {arch} "
+                                     f"failed:\n{stdout[-2000:]}\n{stderr[-2000:]}")
+    finally:
+        for proc in dry.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+    # (c) the dry-run's records
+    cells = {}
+    for arch in MESH_DRYRUN["archs"]:
+        for shape in MESH_DRYRUN["shapes"]:
+            rec = json.loads((dry_out / f"{arch}__{shape}__pod1.json").read_text())
+            if rec.get("status") != "ok":
+                raise AssertionError(f"phase 10 (c): {arch} {shape}: {rec}")
+            cells[f"{arch}/{shape}"] = {k: rec[k] for k in (
+                "dominant", "useful_ratio", "compute_s", "memory_s",
+                "collective_s", "lower_s", "compile_s", "memory_stats")}
+            log(f"  (c) dry-run {arch} {shape} on 256 fake ranks (16 x 16): "
+                f"dominant {rec['dominant']}, useful_ratio "
+                f"{rec['useful_ratio']:.3f}, per-device peak "
+                f"{rec['memory_stats']['peak_gb']:.2f} GB of the card's 80 GB, "
+                f"trace {rec['compile_s']}s (state built and placed in "
+                f"{rec['lower_s']}s)")
+    secs = time.perf_counter() - t0
+    log(f"  phase 10 took {secs:.1f}s on {gpu_line}")
+    return dict(a={k: a[k] for k in ("plain", "plain_ms", "sharded", "sharded_ms",
+                                     "counts", "peak_bytes", "device")},
+                fake=fake, b=[{k: v for k, v in o.items() if k != "param_err"}
+                              for o in b],
+                b_worst_param_err=worst, b_loss_err=loss_err, c=cells,
+                seconds=secs)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -3694,6 +4079,13 @@ def main() -> int:
     a2a_rep, a2a_launches, a2a_caps = a2a_path(torch, dev, gpu_line)
     log(f"  phase 9 done at {time.perf_counter() - t_start:.1f}s")
 
+    log("phase 10: the sharded program (DTensor placements over a (data, "
+        "model) mesh) and its dry-run: (a) qwen1.5-0.5b train steps on one "
+        "NCCL rank, (b) a tensor-parallel fp32 step on two gloo ranks, (c) "
+        "the dry-run on a 256-rank fake group")
+    mesh_rep = mesh_path(torch, dev, gpu_line)
+    log(f"  phase 10 done at {time.perf_counter() - t_start:.1f}s")
+
     log("phase 4: kernel times at the main paths' shapes (CUDA events)")
     caps = {a: p[2] for a, p in paths.items()}
     launches = {a: p[3] for a, p in paths.items()}
@@ -3714,7 +4106,7 @@ def main() -> int:
                               for a, p in paths.items()},
                   serving=serving, train_path=train_rep, paper_path=paper_rep,
                   recurrent_path=recurrent_rep, family_path=family_rep,
-                  a2a_path=a2a_rep,
+                  a2a_path=a2a_rep, mesh_path=mesh_rep,
                   kernels=kernels, seconds=time.perf_counter() - t_start)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

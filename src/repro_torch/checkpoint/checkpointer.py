@@ -18,7 +18,20 @@ Contract:
   thread, so the training loop waits only for the device-to-host copy;
 * ``keep`` bounds disk use (the oldest committed steps are removed);
 * ``restore`` puts every leaf on the device of the matching leaf of
-  ``target`` and checks its dtype.
+  ``target`` and checks its dtype;
+* sharded state: a state of DTensors is saved as full tensors, and
+  ``restore(..., specs=, mesh=)`` places them on ``mesh`` by a spec
+  tree, which may be another mesh than the one that saved them, as the
+  reference's ``restore(shardings=)`` (:124-160); without specs a
+  DTensor leaf of ``target`` gets its own placements back.  Such a
+  ``save`` is collective: every rank of the process group calls it
+  (each takes part in the gathers), rank 0 alone writes, and the next
+  ``wait`` (which ``save`` itself starts with) is a barrier, so every
+  rank then sees the same committed steps.  A state that mixes DTensors
+  with plain tensors is refused: its plain leaves may differ from rank
+  to rank (expert shards under the all-to-all), and rank 0's alone
+  would be kept.  A state of plain tensors is saved by each process
+  that calls ``save``, as on one device.
 
 The reference writes its meta with msgpack; here it is JSON (no
 dependency beyond the standard library).  numpy has no bfloat16, so a
@@ -47,6 +60,8 @@ _BITS_AS = {torch.bfloat16: torch.int16}
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     t = t.detach()
+    if _is_dtensor(t):                         # the whole tensor
+        t = t.full_tensor()
     if t.dtype in _BITS_AS:
         t = t.view(_BITS_AS[t.dtype])
     return t.cpu().numpy()
@@ -61,6 +76,23 @@ def _from_host(a: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
+
+
+def _is_dtensor(t) -> bool:
+    return hasattr(t, "full_tensor")
+
+
+def _collective(pairs) -> bool:
+    """Whether saving the leaves ``pairs`` is collective (every leaf a
+    DTensor); raises on a mix of DTensors and plain tensors."""
+    sharded = [p for p, t in pairs if _is_dtensor(t)]
+    if sharded and len(sharded) != len(pairs):
+        plain = [p for p, t in pairs if not _is_dtensor(t)]
+        raise ValueError(
+            "a state that mixes DTensors with plain tensors cannot be saved: "
+            f"the plain leaves ({', '.join(plain[:3])}, ...) may differ from "
+            "rank to rank; place every leaf on the mesh")
+    return bool(sharded)
 
 
 def _rebuild(target: Any, by_path: Dict[str, torch.Tensor], prefix: str = ""):
@@ -82,6 +114,7 @@ class Checkpointer:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False       # the last save was collective
 
     # -- inspection ----------------------------------------------------------
 
@@ -108,6 +141,7 @@ class Checkpointer:
         # the same step dir turn rmtree/makedirs into FileExists/NotFound
         self.wait()
         pairs = list(iter_leaves(state))
+        collective = _collective(pairs)
         paths = [p for p, _ in pairs]
         dtypes = [_dtype_name(t) for _, t in pairs]
         # device->host snapshot (the only part that must block the loop)
@@ -136,6 +170,11 @@ class Checkpointer:
             os.replace(tmp, final)
             self._gc()
 
+        if collective:
+            import torch.distributed as dist
+            self._barrier = dist.is_initialized()
+            if self._barrier and dist.get_rank() != 0:
+                return
         if blocking:
             write()
         else:
@@ -146,8 +185,15 @@ class Checkpointer:
         self.save(step, state, blocking=False)
 
     def wait(self) -> None:
+        """Until the last save is on disk.  After a collective save (a
+        state of DTensors) this is collective too: every rank waits for
+        the writer at a barrier."""
         if self._thread is not None and self._thread.is_alive():
             self._thread.join()
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = self.committed_steps()
@@ -156,12 +202,16 @@ class Checkpointer:
 
     # -- restore ---------------------------------------------------------------
 
-    def restore(self, step: Optional[int] = None, *, target: Any = None) -> Any:
+    def restore(self, step: Optional[int] = None, *, target: Any = None,
+                specs: Any = None, mesh: Any = None) -> Any:
         """Load a committed checkpoint.
 
         ``target``: a tree whose structure the leaves are put back into,
-        each leaf on the device of ``target``'s leaf at the same path.
-        Without it: {"step", "leaves" (CPU tensors), "paths"}."""
+        each leaf on the device of ``target``'s leaf at the same path (a
+        DTensor leaf with its placements).  With ``specs`` (a spec tree
+        like ``target``) and ``mesh``, every leaf is placed on ``mesh``
+        by its spec instead.  Without ``target``: {"step", "leaves" (CPU
+        tensors), "paths"}."""
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -186,5 +236,24 @@ class Checkpointer:
                 raise ValueError(
                     f"{path}: checkpoint {h.dtype}{tuple(h.shape)} != target "
                     f"{proto.dtype}{tuple(proto.shape)}")
-            by_path[path] = h.to(proto.device)
-        return _rebuild(target, by_path)
+            by_path[path] = h
+        if specs is None:
+            return _rebuild(target, {path: _place_like(by_path[path], proto)
+                                     for path, proto in want})
+        if mesh is None:
+            raise ValueError("restore: specs need the mesh to place them on")
+        from repro_torch.distributed.sharding import distribute_tree
+        dev = ("cpu" if mesh.device_type == "cpu" else
+               torch.device("cuda", torch.cuda.current_device()))
+        full = _rebuild(target, {k: v.to(dev) for k, v in by_path.items()})
+        return distribute_tree(full, specs, mesh)
+
+
+def _place_like(h: torch.Tensor, proto) -> torch.Tensor:
+    """The host tensor on ``proto``'s device; for a DTensor ``proto``,
+    this rank's shard of it under ``proto``'s placements."""
+    if hasattr(proto, "device_mesh"):
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(h.to(proto.device), proto.device_mesh,
+                                 proto.placements, src_data_rank=None)
+    return h.to(proto.device)

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from .base import ModelConfig, make_smoke, torch_dtype
+from .base import (SHAPES, ModelConfig, ShapeCell, cell_applicable, input_specs,
+                   make_smoke, torch_dtype)
 from .command_r_plus_104b import CONFIG as command_r_plus_104b
 from .deepseek_7b import CONFIG as deepseek_7b
 from .deepseek_67b import CONFIG as deepseek_67b
@@ -42,4 +43,4 @@ def list_archs() -> List[str]:
 
 
 __all__ = ["ARCHS", "get_config", "list_archs", "ModelConfig", "make_smoke",
-           "torch_dtype"]
+           "torch_dtype", "ShapeCell", "SHAPES", "cell_applicable", "input_specs"]

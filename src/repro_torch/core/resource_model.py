@@ -3,8 +3,10 @@
 A copy of ``TPUResourceModel`` and what it needs from
 ``src/repro/core/resource_model.py`` (:48-159).  With the same cost
 vectors the knapsack makes the same selection as the JAX package.  The
-modelled resources are the reference's ``[mxu_passes, hbm_pages]``; an
-H100 ``HardwareSpec`` (tile alignment, HBM capacity) is later work.
+modelled resources are the reference's ``[mxu_passes, hbm_pages]``.
+``H100_SXM`` is an opt-in ``HardwareSpec`` for the dry-run's roofline
+(``launch/roofline.py``); ``TPUResourceModel`` keeps ``TPU_V5E``, so the
+knapsack's selections stay the reference's.
 ``fpga_dsp_bram`` gives the paper's own FPGA vector ``[DSP, BRAM36]``
 for one structure, which the paper-table experiments price with.
 """
@@ -18,7 +20,8 @@ import numpy as np
 
 from .structures import BlockingSpec, StructureInfo
 
-__all__ = ["TPUResourceModel", "HardwareSpec", "TPU_V5E", "consecutive_groups"]
+__all__ = ["TPUResourceModel", "HardwareSpec", "TPU_V5E", "H100_SXM",
+           "consecutive_groups"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +39,19 @@ class HardwareSpec:
 
 
 TPU_V5E = HardwareSpec()
+
+# One NVIDIA H100 SXM, the three fields the roofline reads; the others are
+# the TPU's and unused for it.
+H100_SXM = HardwareSpec(
+    name="h100-sxm",
+    # dense bf16 tensor-core peak, NVIDIA H100 data sheet (SXM, 700 W)
+    peak_flops_bf16=989e12,
+    # HBM3, 80 GB part, NVIDIA H100 data sheet
+    hbm_bw=3.35e12,
+    # one 400 Gb/s network link per GPU (ConnectX-7 InfiniBand NDR), the
+    # link a 16-way mesh axis crosses: it spans two 8-GPU NVLink nodes
+    ici_bw=50e9,
+)
 
 _BYTES = {"fp32": 4.0, "bf16": 2.0, "fp16": 2.0, "int8": 1.0, "fp8": 1.0, "int4": 0.5}
 _MXU_SCALE = {"fp32": 2.0, "bf16": 1.0, "fp16": 1.0, "int8": 0.5, "fp8": 0.5, "int4": 0.25}

@@ -1,13 +1,15 @@
 """Host data pipeline, torch port of ``src/repro/data/pipeline.py``:
-step-indexed deterministic batches placed on one explicit device, and a
-background prefetch.
+step-indexed deterministic batches placed on one device or on a mesh,
+and a background prefetch.
 
 * Batches are a pure function of (seed, global step), so a restart
   replays exactly the same sequence with no pipeline state.
 * On a CUDA device each batch is staged in pinned host memory and copied
-  with ``non_blocking=True``, so the copy overlaps the card's work.  The
-  reference places batches on a mesh instead; multi-device placement
-  belongs to the multi-device work and is not ported yet.
+  with ``non_blocking=True``, so the copy overlaps the card's work.
+* With ``mesh`` (a ``DeviceMesh``) each batch leaf becomes a DTensor
+  sharded on its first dim over the ``batch_axes`` the mesh has and
+  replicated over the others, as the reference places it (:52-60).
+  Every rank synthesises the same host batch and keeps its own rows.
 * ``run`` prefetches ``prefetch`` steps ahead on a worker thread
   (overlapping the host's synthesis with the device's compute).
 """
@@ -27,10 +29,15 @@ __all__ = ["LMPipeline"]
 
 class LMPipeline:
     def __init__(self, task: TokenTask, batch: int, seq: int, *, device=None,
-                 prefetch: int = 2):
+                 mesh=None, batch_axes=("data",), prefetch: int = 2):
         self.task = task
         self.batch = batch
         self.seq = seq
+        self.mesh = mesh
+        self.batch_axes = batch_axes
+        if mesh is not None and device is None:
+            device = ("cpu" if mesh.device_type == "cpu" else
+                      torch.device("cuda", torch.cuda.current_device()))
         self.device = resolve_device(device)
         self._prefetch = prefetch
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
@@ -42,9 +49,18 @@ class LMPipeline:
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
         host = self.task.batch(step, self.batch, self.seq)
         if self.device.type != "cuda":
-            return {k: v.to(self.device) for k, v in host.items()}
-        return {k: v.pin_memory().to(self.device, non_blocking=True)
-                for k, v in host.items()}
+            out = {k: v.to(self.device) for k, v in host.items()}
+        else:
+            out = {k: v.pin_memory().to(self.device, non_blocking=True)
+                   for k, v in host.items()}
+        if self.mesh is None:
+            return out
+        from repro_torch.distributed.sharding import distribute_tree
+
+        names = tuple(self.mesh.mesh_dim_names)
+        axes = tuple(a for a in self.batch_axes if a in names)
+        spec = (axes if axes else None,)
+        return distribute_tree(out, {k: spec for k in out}, self.mesh)
 
     # -- prefetching iterator --------------------------------------------------
 

@@ -18,10 +18,14 @@ one.
 
 The run is on the card unless ``--device cpu`` is given; without a card
 it fails rather than fall back.  ``--mesh single|multi`` builds the
-production mesh (``launch/mesh.py``), which raises its ``RuntimeError``
-on a world smaller than 256 or 512 ranks, as the reference's launcher
-does on fewer devices; training over a built mesh is not ported yet and
-raises ``NotImplementedError``.
+production mesh (``launch/mesh.py``) over the process group, which
+raises its ``RuntimeError`` on a world smaller than 256 or 512 ranks, as
+the reference's launcher does on fewer devices, and trains over it:
+``LMPipeline(mesh=)`` shards each batch over "data", and the state is
+replicated, since the launcher installs no rules, as the reference's
+does: pure data parallelism, the gradients all-reduced.
+``build_trainer(..., mesh=)`` takes any mesh (the tests pass a small
+one over CPU ranks).
 """
 from __future__ import annotations
 
@@ -42,21 +46,34 @@ FINETUNE_STEPS = 10
 
 def build_trainer(cfg, *, steps: int, batch: int, seq: int, lr: float,
                   seed: int, device, ckpt_dir: str, ckpt_every: int,
-                  log_every: Optional[int] = None):
+                  log_every: Optional[int] = None, mesh=None, opt=None):
     """(trainer, pipeline, AdamW config) of the launcher's training run:
-    seeded params on ``device``, fp32 AdamW master weights unless the
-    params are fp32, ``warmup_cosine(lr, steps // 10 + 1, steps)``."""
+    seeded params on ``device``, AdamW by ``opt`` (default: fp32 master
+    weights unless the params are fp32),
+    ``warmup_cosine(lr, steps // 10 + 1, steps)``.  With
+    ``mesh`` (a ``DeviceMesh``; ``device`` is then the rank's) the state
+    is replicated over it, the batches sharded over "data", and every
+    step runs under the mesh."""
+    from repro_torch.core.masks import map_tree
     from repro_torch.data import LMPipeline, TokenTask
+    from repro_torch.distributed import distribute_tree, use_mesh
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, warmup_cosine
     from repro_torch.train import Trainer, TrainerConfig, init_train_state, make_train_step
 
     params = init_params(cfg, seed=seed, device=device)
-    opt_cfg = AdamWConfig(use_master=cfg.param_dtype != "float32")
+    opt_cfg = opt or AdamWConfig(use_master=cfg.param_dtype != "float32")
     state = init_train_state(params, opt_cfg)
     step = make_train_step(cfg, opt_cfg, warmup_cosine(lr, steps // 10 + 1, steps))
     pipe = LMPipeline(TokenTask(vocab=cfg.vocab, seed=seed), batch, seq,
-                      device=device)
+                      device=device, mesh=mesh)
+    if mesh is not None:
+        state = distribute_tree(state, map_tree(lambda _: (), state), mesh)
+        replicated_step = step
+
+        def step(state, batch):
+            with use_mesh(mesh):
+                return replicated_step(state, batch)
     trainer = Trainer(
         step, state, pipe.batch_at,
         TrainerConfig(total_steps=steps, ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
@@ -147,16 +164,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from repro_torch.configs import get_config, make_smoke
     from repro_torch.device import resolve_device
 
+    device = resolve_device(args.device)
+    mesh = None
     if args.mesh != "none":
         from repro_torch.launch.mesh import make_production_mesh
 
         # raises on a world smaller than the mesh, as the reference does
-        make_production_mesh(multi_pod=args.mesh == "multi")
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: data-parallel training over the mesh (the "
-            "reference's LMPipeline(..., mesh=mesh)) is not ported to torch "
-            "yet; run with --mesh none on one device")
-    device = resolve_device(args.device)
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device_type=device.type)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = make_smoke(cfg)
@@ -164,7 +179,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     trainer, pipe, opt_cfg = build_trainer(
         cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
         seed=args.seed, device=device, ckpt_dir=args.ckpt_dir,
-        ckpt_every=args.ckpt_every)
+        ckpt_every=args.ckpt_every, mesh=mesh)
     result = trainer.run()
     print(f"done: step={result['final_step']} preempted={result['preempted']} "
           f"stragglers={len(result['stragglers'])}")

@@ -29,6 +29,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import (batch_placements, is_dtensor,
+                                              logical_constraint, shard_extent,
+                                              shard_map, whole_groups)
 from repro_torch.kernels import ops
 from .layers import apply_mrope, apply_rope, dense, dense_init
 
@@ -60,6 +63,7 @@ def attention_init(d_model: int, num_heads: int, kv_heads: int, head_dim: int,
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    x = whole_groups(x, 2, heads)
     b, s, hd = x.shape
     return x.reshape(b, s, heads, hd // heads)
 
@@ -118,6 +122,44 @@ def full_attention(q, k, v, *, causal=True, window=None):
                                     chunk=q.shape[1])
 
 
+def _local_kv(k: torch.Tensor, head_off: int, heads: int, group: int) -> torch.Tensor:
+    """The K/V heads (B, S, K, dh) that query heads ``[head_off, head_off +
+    heads)`` read: a slice of whole groups, else one K/V head per query
+    head."""
+    if head_off % group == 0 and heads % group == 0:
+        return k[:, :, head_off // group:(head_off + heads) // group]
+    idx = (head_off + torch.arange(heads, device=k.device)) // group
+    return k[:, :, idx]
+
+
+def _per_head_shards(fn, q, k, v, *rows):
+    """``fn(q, k, v, *rows)``, attention independent per (batch row, query
+    head), run on each rank's shards when q is a DTensor: q as placed
+    (heads sharded on "model" under the rules), K/V replicated over the
+    heads' axes and sliced to the local query heads' groups, each ``rows``
+    tensor (B, ...) sharded as q's batch.  K/V gradients are partial sums
+    over the heads' axes.  Plain tensors: ``fn`` itself."""
+    if not is_dtensor(q):
+        return fn(q, k, v, *rows)
+    from torch.distributed.tensor import Partial, Shard
+
+    group = q.shape[2] // k.shape[2]
+    head_off, heads = shard_extent(q, 2)
+    batch = batch_placements(q)          # also K/V's: whole over the heads' axes
+    kv_grad = tuple(Partial() if q.placements[i] == Shard(2) else batch[i]
+                    for i in range(len(batch)))
+
+    def local(ql, kl, vl, *rl):
+        return fn(ql, _local_kv(kl, head_off, heads, group),
+                  _local_kv(vl, head_off, heads, group), *rl)
+
+    return shard_map(
+        local, in_placements=(q.placements, batch, batch) + (batch,) * len(rows),
+        out_placements=q.placements,
+        in_grad_placements=(q.placements, kv_grad, kv_grad)
+        + (batch,) * len(rows))(q, k, v, *rows)
+
+
 def _wo_project(p: Dict, o: torch.Tensor, num_heads: int, head_dim: int,
                 accum) -> torch.Tensor:
     """Output projection of (B, S, H, dh) attention values (reference
@@ -169,13 +211,22 @@ def attention_apply(
     accum = accum or torch.float32
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, num_heads, kv_heads, kv_input)
+    q = logical_constraint(q, "batch", "seq", "heads", None)
+    k = logical_constraint(k, "batch", "seq", "kv", None)
+    v = logical_constraint(v, "batch", "seq", "kv", None)
     if use_rope:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
         q, k = _rotate(q, k, positions, rope_theta, mrope_sections)
-    o = chunked_causal_attention(q, k, v, causal=causal, window=window,
-                                 chunk=chunk)
-    return _wo_project(p, o, num_heads, head_dim, accum)
+
+    def attend(ql, kl, vl):
+        return chunked_causal_attention(ql, kl, vl, causal=causal,
+                                        window=window, chunk=chunk)
+
+    o = logical_constraint(_per_head_shards(attend, q, k, v),
+                           "batch", "seq", "heads", None)
+    out = _wo_project(p, o, num_heads, head_dim, accum)
+    return logical_constraint(out, "batch", "seq", "embed")
 
 
 def attention_prefill(
@@ -249,7 +300,7 @@ def attention_prefill(
         o = chunked_causal_attention(q, k, v, causal=True, window=window,
                                      chunk=chunk)
     out = _wo_project(p, o, num_heads, head_dim, accum)
-    return out, cache
+    return logical_constraint(out, "batch", "seq", "embed"), cache
 
 
 def cross_attention_prefill(p: Dict, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -333,26 +384,63 @@ def attention_decode(
             q[:, 0], knew[:, 0], vnew[:, 0], ck, cv, page_table, cache_len)
         o = dense(p["wo"], o32.to(x.dtype).reshape(b, 1, num_heads * head_dim))
         return o, cache
-    rows = torch.arange(b, device=x.device)
     write_pos = cache_len % max_len if ring else cache_len
-    ck[rows, write_pos] = knew[:, 0].to(ck.dtype)
-    cv[rows, write_pos] = vnew[:, 0].to(cv.dtype)
+    _write_rows(write_pos, (ck, knew), (cv, vnew))
 
     kpos = torch.arange(ck.shape[1], device=x.device)[None, :]
     valid = kpos <= clen
     if window is not None and not ring:
         valid &= kpos > clen - window
+    ck = logical_constraint(ck, "batch", "kv_seq", "kv", None)
+    cv = logical_constraint(cv, "batch", "kv_seq", "kv", None)
     return _decode_attend(p, x, q, ck, cv, valid, head_dim), cache
 
 
-def _decode_attend(p, x, q, ck, cv, valid, head_dim):
-    """One query per row, q (B, 1, H, dh), over a contiguous cache at the
-    positions where ``valid`` (B, S); fp32 softmax, then the output
-    projection."""
-    b, h, kv_heads = q.shape[0], q.shape[2], ck.shape[2]
-    qg = q.reshape(b, 1, kv_heads, h // kv_heads, head_dim)
-    scores = _gqa_scores(qg, ck) / math.sqrt(head_dim)      # (B,K,G,1,S)
+def _write_rows(pos: torch.Tensor, *pairs) -> None:
+    """``cache[r, pos[r]] = new[r, 0]`` for every row r of each
+    ``(cache, new)`` pair, in place."""
+    first = pairs[0][0]
+    if not is_dtensor(first):
+        rows = torch.arange(first.shape[0], device=first.device)
+        for cache, new in pairs:
+            cache[rows, pos] = new[:, 0].to(cache.dtype)
+        return
+    for cache, new in pairs:
+        _write_shard_rows(cache, pos, new)
+
+
+def _write_shard_rows(cache, pos, new) -> None:
+    """``_write_rows`` on a DTensor cache: each rank writes into its own
+    shard, its rows, and of those the positions inside its slice of the
+    sequence."""
+    row_off, nrows = shard_extent(cache, 0)
+    seq_off, nseq = shard_extent(cache, 1)
+    val = new.redistribute(cache.device_mesh, batch_placements(cache)).to_local()[:, 0]
+    local = cache.to_local()
+    rows = torch.arange(nrows, device=local.device)
+    at = pos[row_off:row_off + nrows] - seq_off
+    inside = (at >= 0) & (at < nseq)
+    at = at.clamp(0, nseq - 1)
+    local[rows, at] = torch.where(inside[:, None, None], val.to(local.dtype),
+                                  local[rows, at])
+
+
+def _decode_core(q, ck, cv, valid):
+    """One query per row, q (B, 1, H, dh), over a contiguous cache (B, S,
+    K, dh) at the positions where ``valid`` (B, S); fp32 softmax.
+    Returns (B, 1, H, dh) fp32."""
+    b, h, kv_heads, dh = q.shape[0], q.shape[2], ck.shape[2], q.shape[3]
+    qg = q.reshape(b, 1, kv_heads, h // kv_heads, dh)
+    scores = _gqa_scores(qg, ck) / math.sqrt(dh)            # (B,K,G,1,S)
     scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
-    o = _gqa_values(w, cv).to(x.dtype)                      # (B,1,K,G,dh)
+    return _gqa_values(w, cv).reshape(b, 1, h, dh)          # (B,1,H,dh)
+
+
+def _decode_attend(p, x, q, ck, cv, valid, head_dim):
+    """``_decode_core`` (per rank's shards on DTensors), then the output
+    projection."""
+    b, h = q.shape[0], q.shape[2]
+    q = logical_constraint(q, "batch", None, "heads", None)
+    o = _per_head_shards(_decode_core, q, ck, cv, valid).to(x.dtype)
     return dense(p["wo"], o.reshape(b, 1, h * head_dim))

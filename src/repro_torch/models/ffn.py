@@ -11,6 +11,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.distributed.sharding import logical_constraint
 from .layers import dense, dense_init
 
 __all__ = ["mlp_init", "mlp_apply"]
@@ -34,8 +35,10 @@ def mlp_apply(p: Dict, x: torch.Tensor, *, activation: str = "silu",
     residual stream."""
     accum = accum or torch.float32
     if "w_gate" in p:
-        up = dense(p["w_up"], x)
+        up = logical_constraint(dense(p["w_up"], x), "batch", "seq", "mlp")
         h = dense(p["w_gate"], x, activation=activation, multiplier=up)
     else:
         h = dense(p["w_up"], x, activation=activation)
-    return dense(p["w_down"], h, accum=accum, residual=residual)
+    h = logical_constraint(h, "batch", "seq", "mlp")
+    out = dense(p["w_down"], h, accum=accum, residual=residual)
+    return logical_constraint(out, "batch", "seq", "embed")

@@ -22,6 +22,10 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core.packing import BSRPlanes, BSRWeight
+from repro_torch.distributed.sharding import (gather_fsdp, is_dtensor,
+                                              logical_constraint, reduce_partial,
+                                              grad_as_input, shard_extent,
+                                              shard_map)
 from repro_torch.kernels import ops
 from repro_torch.kernels.epilogue import apply_epilogue, make_epilogue
 
@@ -63,8 +67,18 @@ def matmul(x: torch.Tensor, w, *, accum=torch.float32, epilogue=None) -> torch.T
     ``torch.matmul`` followed by the same epilogue op order."""
     if isinstance(w, BSRWeight):
         return ops.bsr_matmul(x, w, epilogue=epilogue).to(accum)
+    if is_dtensor(x) or is_dtensor(w):
+        return apply_epilogue(_sharded_matmul(x, w, accum), epilogue)
     y = torch.matmul(x.to(torch.float32), w.to(torch.float32)).to(accum)
     return apply_epilogue(y, epilogue)
+
+
+def _sharded_matmul(x, w, accum):
+    """The product on DTensors: the FSDP weight gathered, the input's
+    gradient placed as the input, a partial-sum output reduced."""
+    x, w = grad_as_input(x), gather_fsdp(w)
+    return reduce_partial(torch.matmul(x.to(torch.float32),
+                                       w.to(torch.float32)).to(accum))
 
 
 def expert_matmul(h: torch.Tensor, w, *, accum=torch.float32,
@@ -141,15 +155,52 @@ def embed_init(vocab: int, dim: int, *, generator, device,
 
 
 def embed_lookup(p, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
-    """(B, S) int -> (B, S, D)."""
+    """(B, S) int -> (B, S, D), a row gather of the table (of a DTensor
+    table, ``_sharded_lookup``)."""
     table = p["embedding"]
-    return table[tokens.long()].to(dtype or table.dtype)
+    if is_dtensor(table):
+        out = _sharded_lookup(table, tokens)
+    else:
+        out = table[tokens.long()]
+    out = logical_constraint(out, "batch", "seq", "embed")
+    return out.to(dtype or table.dtype)
+
+
+def _sharded_lookup(table, tokens):
+    """The lookup on each rank's shards, as GSPMD partitions the
+    reference's ``take`` (:173): the table's d_model gathered, each rank
+    gathers the tokens of its vocab rows and zeros for the others, and the
+    result is a partial sum over the vocab's axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    vocab = [pl == Shard(0) for pl in table.placements]
+    tok_pl = tokens.placements if is_dtensor(tokens) else [Replicate()] * len(vocab)
+    tok = [Replicate() if v else pl for v, pl in zip(vocab, tok_pl)]
+    rows = [Shard(0) if v else Replicate() for v in vocab]
+    out = [Partial() if v else pl for v, pl in zip(vocab, tok)]
+    grad = [Shard(0) if v else (Partial() if pl.is_shard() else Replicate())
+            for v, pl in zip(vocab, tok)]
+    v_off, v_len = shard_extent(table.redistribute(placements=rows), 0)
+
+    def lookup(t, ids):
+        at = ids.long() - v_off
+        inside = (at >= 0) & (at < v_len)
+        got = t[at.clamp(0, v_len - 1)]
+        return torch.where(inside[..., None], got, torch.zeros_like(got))
+
+    return shard_map(lookup, in_placements=(rows, tok), out_placements=out,
+                     in_grad_placements=(grad, tok))(table, tokens)
 
 
 def unembed_logits(p, x: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) -> (B, S, V) fp32 logits from fp32 accumulation."""
+    """(B, S, D) -> (B, S, V) fp32 logits from fp32 accumulation,
+    vocab-sharded under the rules."""
     table = p["embedding"]
-    return torch.matmul(x.to(torch.float32), table.to(torch.float32).T)
+    if not (is_dtensor(x) or is_dtensor(table)):
+        return torch.matmul(x.to(torch.float32), table.to(torch.float32).T)
+    x, table = grad_as_input(x), gather_fsdp(table)
+    logits = torch.matmul(x.to(torch.float32), table.to(torch.float32).T)
+    return logical_constraint(logits, "batch", "seq", "vocab")
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import logical_constraint
 from .layers import dense, dense_init, truncated_normal
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_prefill", "mamba_decode",
@@ -110,6 +111,7 @@ def _mamba_forward(p: Dict, x: torch.Tensor, conv_state: Optional[torch.Tensor],
     """Full-sequence forward: (out, conv_state, ssm_state)."""
     b, s, _ = x.shape
     xi, z = torch.chunk(dense(p["in_proj"], x), 2, dim=-1)      # (B, S, di)
+    xi = logical_constraint(xi, "batch", "seq", "mlp")
     xi, conv_state = _causal_conv(xi, p["conv_kernel"], p["conv_bias_vec"],
                                   state=conv_state)
     xi = F.silu(xi.to(torch.float32)).to(x.dtype)

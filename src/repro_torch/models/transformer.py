@@ -34,6 +34,12 @@ Caches (``init_caches`` :391) are K/V for attention layers and the
 recurrent state for the others; they are updated in place and also
 returned, so callers written against the reference's functional
 signature keep working.
+
+The same functions run the sharded program: given DTensor params,
+batches and caches under an installed mesh and rules, the reference's
+``logical_constraint``s (:129, :347, :451, :578 and in the layers) place
+the activations, and ``cross_entropy_loss`` takes its terms
+vocab-parallel.
 """
 from __future__ import annotations
 
@@ -47,8 +53,11 @@ import torch.utils.checkpoint
 from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (axis_rules, current_mesh,
-                                              current_rules, use_mesh)
+from repro_torch.distributed.sharding import (axis_rules, batch_placements,
+                                              current_mesh, current_rules,
+                                              is_dtensor,
+                                              logical_constraint, reduce_partial,
+                                              shard_extent, shard_map, use_mesh)
 from .attention import (
     _split_heads,
     attention_apply,
@@ -305,10 +314,20 @@ def _apply_layer(lp: Dict, x: torch.Tensor, positions: Optional[torch.Tensor],
         h = torch.zeros_like(xn)
     else:
         h = slstm_apply(lp["slstm"], xn, num_heads=cfg.n_heads)
-    x, aux = _mlp(lp, spec, cfg, x + h)
+    x, aux = _mlp(lp, spec, cfg, _residual(cfg, x + h))
+    x = _residual(cfg, x)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
+
+
+def _residual(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The residual stream sharded on seq over "res_seq" when
+    ``cfg.seq_sharded_acts`` (Megatron sequence parallelism, reference
+    :125-130)."""
+    if cfg.seq_sharded_acts:
+        return logical_constraint(x, "batch", "res_seq", "embed")
+    return x
 
 
 def _in_context(fn, mesh, rules, *args):
@@ -376,6 +395,7 @@ def lm_forward(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     recomputed in the backward pass."""
     specs = _check_ported(cfg)
     x, positions = _embed(params, batch, cfg)
+    x = logical_constraint(x, "batch", "seq", "embed")
     enc_out = encoder_forward(params, batch["frames"], cfg) if cfg.enc_layers else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, spec in zip(params["layers"], specs):
@@ -389,13 +409,47 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     """Token-mean cross-entropy of fp32 logits (B, S, V) plus the z-loss
     ``z_loss * mean(logsumexp^2)``.  The label logit is gathered; the
     reference's one-hot sum (:378) has a single nonzero term, so the
-    value is the same, without a (B, S, V) one-hot."""
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    value is the same, without a (B, S, V) one-hot.  On DTensor logits
+    both terms are taken vocab-parallel (``_vocab_parallel_terms``)."""
+    if is_dtensor(logits):
+        lse, ll = _vocab_parallel_terms(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = torch.mean(lse - ll)
     if z_loss:
         loss = loss + z_loss * torch.mean(torch.square(lse))
     return loss
+
+
+def _vocab_parallel_terms(logits, labels):
+    """(log-sum-exp, label logit) of vocab-sharded DTensor logits without
+    gathering them, as ``loss_parallel`` takes them: the max, the sum of
+    exponentials and the label logit are reduced per vocab shard, then
+    over the shards (a max, a sum and a sum over "model"), so every rank
+    sees (B, S) terms.  The label logit is the reference's one-hot sum
+    (:378), taken on each rank's shard (its slice of the vocab, a partial
+    sum over "model" where the vocab is sharded), so its backward is
+    local too: left to DTensor, the backward of the one-hot select
+    gathered the batch over "data" on a ("pod", "data") batch."""
+    from torch.distributed.tensor import Partial
+
+    m = reduce_partial(logits.detach().amax(dim=-1, keepdim=True))
+    lse = torch.log(reduce_partial(torch.exp(logits - m).sum(dim=-1))) + m[..., 0]
+    v_off, v_len = shard_extent(logits, 2)
+    placements = tuple(logits.placements)
+
+    def label_logit(lg, lab):
+        ids = torch.arange(v_off, v_off + v_len, device=lg.device)
+        hit = lab.long()[..., None] == ids
+        return torch.where(hit, lg, torch.zeros((), dtype=lg.dtype,
+                                                device=lg.device)).sum(dim=-1)
+
+    ll = shard_map(label_logit,
+                   in_placements=(placements, batch_placements(logits)),
+                   out_placements=tuple(Partial() if pl.is_shard(2) else pl
+                                        for pl in placements))(logits, labels)
+    return lse, reduce_partial(ll)
 
 
 def _unembed(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -430,6 +484,7 @@ def lm_decode(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
     tokens = batch["tokens"]
     page_tables = batch.get("page_tables")
     x = embed_lookup(params["embed"], tokens, dtype=cfg.adtype)
+    x = logical_constraint(x, "batch", None, "embed")
     heads = dict(num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
                  head_dim=cfg.head_dim_())
     for lp, spec, cache in zip(params["layers"], _stack_specs(cfg), caches):
@@ -483,6 +538,7 @@ def lm_prefill(params: Dict, caches: List[Dict], batch: Dict[str, torch.Tensor],
                 f"recurrent/cross-attn mixers ({bad or ['cross-attn']}) carry "
                 "state the cached pages do not hold")
     x, positions = _embed(params, batch, cfg, start_pos)
+    x = logical_constraint(x, "batch", "seq", "embed")
     heads = dict(num_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
                  head_dim=cfg.head_dim_())
     for lp, spec, cache in zip(params["layers"], specs, caches):

@@ -21,12 +21,16 @@ and also return the cache.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (batch_placements, grad_as_input,
+                                              is_dtensor, logical_constraint,
+                                              shard_map, whole_groups)
 from .layers import dense, dense_init, truncated_normal
 
 __all__ = [
@@ -102,6 +106,7 @@ def _mlstm_chunk(carry, q, k, v, ig, fg):
 
 
 def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    x = whole_groups(x, 2, h)
     b, s, d = x.shape
     return x.reshape(b, s, h, d // h).transpose(1, 2)         # (B, H, S, dh)
 
@@ -111,8 +116,9 @@ def _mlstm_qkv(p: Dict, x: torch.Tensor, num_heads: int):
     (B,H,S,dh) and the gate pre-activations ig, fg (B,H,S) in fp32."""
     xin = dense(p["up_proj"], x)
     gate = dense(p["gate_proj"], x)
-    q, k, v = (_heads(dense(p[w], xin), num_heads).to(torch.float32)
-               for w in ("wq", "wk", "wv"))
+    q, k, v = (logical_constraint(
+        _heads(dense(p[w], xin), num_heads).to(torch.float32),
+        "batch", "heads", "seq", None) for w in ("wq", "wk", "wv"))
     ig, fg = torch.chunk(dense(p["wif"], xin).to(torch.float32), 2, dim=-1)
     return xin, gate, q, k, v, ig.transpose(1, 2), fg.transpose(1, 2)
 
@@ -135,15 +141,25 @@ def _mlstm_forward(p: Dict, x: torch.Tensor, carry, *, num_heads: int,
                  torch.zeros((b, num_heads, dh), **z),
                  torch.full((b, num_heads), _NEG, **z))
     chunk = min(chunk, s)
-    hs = []
-    for c0 in range(0, s, chunk):
-        sl = slice(c0, c0 + chunk)
-        carry, hid = _mlstm_chunk(carry, q[:, :, sl], k[:, :, sl], v[:, :, sl],
-                                  ig[:, :, sl], fg[:, :, sl])
-        hs.append(hid)
-    hid = torch.cat(hs, dim=2) if len(hs) > 1 else hs[0]        # (B, H, S, dh)
-    hid = hid.transpose(1, 2).reshape(b, s, d_in)
-    return _mlstm_out(p, x, hid, gate), carry
+
+    def scan(c, n, m, q, k, v, ig, fg):
+        carry = (c, n, m)
+        hs = []
+        for c0 in range(0, s, chunk):
+            sl = slice(c0, c0 + chunk)
+            carry, hid = _mlstm_chunk(carry, q[:, :, sl], k[:, :, sl],
+                                      v[:, :, sl], ig[:, :, sl], fg[:, :, sl])
+            hs.append(hid)
+        return (*carry, torch.cat(hs, dim=2) if len(hs) > 1 else hs[0])
+
+    # independent per (batch row, head): each rank scans its shards
+    pl = tuple(q.placements) if is_dtensor(q) else None
+    *carry, hid = shard_map(scan, in_placements=(pl,) * 8,
+                            out_placements=(pl,) * 4)(*carry, q, k, v, ig, fg)
+    # from (B, H, S, dh); its gradient comes back placed as it is, so the
+    # merge's backward can split the heads again
+    hid = grad_as_input(hid.transpose(1, 2).reshape(b, s, d_in))
+    return _mlstm_out(p, x, hid, gate), tuple(carry)
 
 
 def mlstm_apply(p: Dict, x: torch.Tensor, *, num_heads: int,
@@ -175,20 +191,31 @@ def mlstm_decode(p: Dict, x: torch.Tensor, cache: Dict, *, num_heads: int
     xin, gate, q, k, v, ig, fg = _mlstm_qkv(p, x, num_heads)
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]                # (B, H, dh)
     ig, fg = ig[..., 0], fg[..., 0]                             # (B, H)
+    # independent per (batch row, head): each rank steps its shards
+    pl = tuple(q.placements) if is_dtensor(q) else None
+    c, n, m_new, h = shard_map(_mlstm_step, in_placements=(pl,) * 8,
+                               out_placements=(pl,) * 4)(
+        q, k, v, ig, fg, cache["C"], cache["n"], cache["m"])
+    out = _mlstm_out(p, x, h.reshape(b, 1, -1), gate)
+    return out, _store(cache, {"C": c, "n": n, "m": m_new})
+
+
+def _mlstm_step(q, k, v, ig, fg, c_p, n_p, m_p):
+    """One decode step of the mLSTM recurrence: q, k, v (B, H, dh), gate
+    pre-activations (B, H), the cache's C, n, m.  Returns (C, n, m, h)."""
     dh = q.shape[-1]
     logf = F.logsigmoid(fg)
-    m_new = torch.maximum(cache["m"] + logf, ig)
-    cf = torch.exp(cache["m"] + logf - m_new)
+    m_new = torch.maximum(m_p + logf, ig)
+    cf = torch.exp(m_p + logf - m_new)
     ci = torch.exp(ig - m_new)
     scale = 1.0 / math.sqrt(dh)
-    c = (cf[..., None, None] * cache["C"]
+    c = (cf[..., None, None] * c_p
          + ci[..., None, None] * (k[..., :, None] * v[..., None, :]))
-    n = cf[..., None] * cache["n"] + ci[..., None] * k
+    n = cf[..., None] * n_p + ci[..., None] * k
     numer = torch.einsum("bhd,bhdv->bhv", q * scale, c)
     denom = torch.einsum("bhd,bhd->bh", q * scale, n)
     h = numer / torch.maximum(torch.abs(denom), torch.exp(-m_new))[..., None]
-    out = _mlstm_out(p, x, h.reshape(b, 1, -1), gate)
-    return out, _store(cache, {"C": c, "n": n, "m": m_new})
+    return c, n, m_new, h
 
 
 # ===========================================================================
@@ -238,13 +265,39 @@ def _slstm_mlp(p: Dict, x: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:
     return dense(p["down"], h2)
 
 
+def _slstm_scan(wx, r_rec, c, n, h, m, *, num_heads: int):
+    """The time loop over wx (B, S, 4d): (c, n, h, m, hs (B, S, d))."""
+    state, hs = (c, n, h, m), []
+    for t in range(wx.shape[1]):
+        state, hh = _slstm_step(state, wx[:, t], r_rec, num_heads)
+        hs.append(hh)
+    return (*state, torch.stack(hs, dim=1))
+
+
+def _per_batch_shard(fn, n_out: int, wx, r_rec, *state):
+    """``fn(wx, r_rec, *state)`` (``n_out`` outputs, batch first), the
+    sLSTM recurrence (its heads mix in the recurrent matmul's layout), on
+    each rank's batch shard of DTensor inputs, replicated over the other
+    axes; ``r_rec``'s gradient is a partial sum over the batch's axes.
+    Plain tensors: ``fn`` itself."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    pl = batch_placements(wx)
+    if pl is None:
+        return fn(wx, r_rec, *state)
+    rep = tuple(Replicate() for _ in pl)
+    over_batch = tuple(Partial() if p.is_shard() else p for p in pl)
+    return shard_map(fn, in_placements=(pl, rep) + (pl,) * len(state),
+                     out_placements=(pl,) * n_out,
+                     in_grad_placements=(pl, over_batch) + (pl,) * len(state))(
+        wx, r_rec, *state)
+
+
 def _slstm_forward(p: Dict, x: torch.Tensor, state, *, num_heads: int):
     wx = dense(p["w_in"], x).to(torch.float32)                  # (B, S, 4d)
-    hs = []
-    for t in range(x.shape[1]):
-        state, h = _slstm_step(state, wx[:, t], p["r_rec"], num_heads)
-        hs.append(h)
-    return _slstm_mlp(p, x, torch.stack(hs, dim=1)), state
+    *state, hs = _per_batch_shard(
+        functools.partial(_slstm_scan, num_heads=num_heads), 5, wx, p["r_rec"], *state)
+    return _slstm_mlp(p, x, hs), tuple(state)
 
 
 def init_slstm_cache(batch: int, d_model: int, device=None) -> Dict[str, torch.Tensor]:
@@ -276,6 +329,11 @@ def slstm_prefill(p: Dict, x: torch.Tensor, cache: Dict, *, num_heads: int
 def slstm_decode(p: Dict, x: torch.Tensor, cache: Dict, *, num_heads: int
                  ) -> Tuple[torch.Tensor, Dict]:
     wx = dense(p["w_in"], x).to(torch.float32)[:, 0]            # (B, 4d)
-    state, h = _slstm_step(tuple(cache[k] for k in _SLSTM_KEYS), wx,
-                           p["r_rec"], num_heads)
-    return _slstm_mlp(p, x, h[:, None]), _store(cache, dict(zip(_SLSTM_KEYS, state)))
+    state = _per_batch_shard(functools.partial(_slstm_one, num_heads=num_heads), 4,
+                             wx, p["r_rec"], *(cache[k] for k in _SLSTM_KEYS))
+    return _slstm_mlp(p, x, state[2][:, None]), _store(cache, dict(zip(_SLSTM_KEYS, state)))
+
+
+def _slstm_one(wx, r_rec, c, n, h, m, *, num_heads: int):
+    """One step of the recurrence: the new (c, n, h, m)."""
+    return _slstm_step((c, n, h, m), wx, r_rec, num_heads)[0]

@@ -38,7 +38,7 @@ class AdamWConfig:
 
 def init_opt_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
     def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     first = tree_leaves(params)[0]
     state = {

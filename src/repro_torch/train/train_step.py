@@ -17,6 +17,16 @@ params, so the step is functional like the reference's: the input state
 is left as it was and a new one is returned.  The reference compiles the
 step with ``jax.jit``; here it runs op by op.
 
+Sharded state: the three steps take a state of DTensors (placed by
+``launch.specs.cell_shardings`` through ``distributed.distribute_tree``)
+under an installed mesh and rules, and return it with the same
+placements; each gradient is brought to its parameter's placements
+before the update, and masked AdamW and the global-norm clip then run
+over the shards (the norm's per-leaf sums reduce across them).  Plain
+tensors the model makes itself count as replicated there: each step
+runs under DTensor's ``implicit_replication``, entered once at its
+boundary.
+
 State: {"params", "opt", "masks" (optional), "step" () int32}.
 """
 from __future__ import annotations
@@ -24,9 +34,11 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.masks import apply_masks, map_tree, tree_leaves
+from repro_torch.distributed.sharding import is_dtensor, reduce_partial
 from repro_torch.models.transformer import (
     cross_entropy_loss,
     lm_decode,
@@ -62,14 +74,15 @@ def make_train_step(
     def loss_fn(params, masks, batch):
         p = apply_masks(params, masks) if masks is not None else params
         logits, aux = lm_forward(p, batch, cfg)
-        xent = cross_entropy_loss(logits, batch["labels"])
-        total = xent + moe_aux_weight * aux["moe_aux"]
+        xent = reduce_partial(cross_entropy_loss(logits, batch["labels"]))
+        total = reduce_partial(xent + moe_aux_weight * aux["moe_aux"])
         if reg_fn is not None:
             total = total + reg_fn(params)
         return total, {"loss": xent.detach(), "moe_aux": aux["moe_aux"].detach()}
 
     def grad_fn(params, masks, batch):
-        """((total, metrics), grads) with grads a tree like params."""
+        """((total, metrics), grads) with grads a tree like params (a
+        DTensor gradient placed as its parameter)."""
         with torch.enable_grad():
             leaves = []
 
@@ -85,11 +98,19 @@ def make_train_step(
 
         def grad_of(_):
             leaf, g = next(it)
-            return torch.zeros_like(leaf) if g is None else g
+            if g is None:
+                return torch.zeros_like(leaf)
+            if is_dtensor(g) and g.placements != leaf.placements:
+                g = g.redistribute(leaf.device_mesh, leaf.placements)
+            return g
 
         return (total.detach(), metrics), map_tree(grad_of, live)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        with implicit_replication():
+            return _train_step(state, batch)
+
+    def _train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params = state["params"]
         masks = state.get("masks")
 
@@ -130,14 +151,26 @@ def make_train_step(
     return train_step
 
 
+def _last_position(logits: torch.Tensor) -> torch.Tensor:
+    """(B, V) logits of the last position, a DTensor's vocab gathered
+    (DTensor has no cross-shard argmax)."""
+    last = logits[:, -1, :]
+    if is_dtensor(last):
+        from torch.distributed.tensor import Replicate
+        last = last.redistribute(last.device_mesh, tuple(
+            Replicate() if p.is_shard(1) else p for p in last.placements))
+    return last
+
+
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """Inference prefill: forward to logits (no labels, no backward);
     returns the last position's greedy token."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = lm_forward(params, batch, cfg)
-        return torch.argmax(logits[:, -1, :], dim=-1)
+        with implicit_replication():
+            logits, _ = lm_forward(params, batch, cfg)
+            return torch.argmax(_last_position(logits), dim=-1)
 
     return prefill_step
 
@@ -149,8 +182,9 @@ def make_decode_step(cfg: ModelConfig, *, greedy: bool = True) -> Callable:
 
     @torch.no_grad()
     def decode_step(params, caches, batch, cache_len):
-        logits, caches = lm_decode(params, caches, batch, cache_len, cfg)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        with implicit_replication():
+            logits, caches = lm_decode(params, caches, batch, cache_len, cfg)
+            next_tok = torch.argmax(_last_position(logits), dim=-1).to(torch.int32)
         return next_tok, caches
 
     return decode_step

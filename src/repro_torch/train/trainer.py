@@ -154,6 +154,7 @@ class Trainer:
         self.ckpt.wait()
         if self.ckpt.latest_step() != final_step:
             self.ckpt.save(final_step, self.state, blocking=True)
+        self.ckpt.wait()      # every rank of a sharded run sees it committed
         return {
             "final_step": final_step,
             "preempted": self._preempted,
