@@ -262,6 +262,29 @@ Phases, any failure ends the run with a non-zero exit code:
    the 256-rank fake group at full width (CPU only, started first and
    overlapping (a) and (b)), every record "ok".
 
+11. (run after phase 3b) the analysis package: (a) the port's lint,
+   ``python -m repro_torch.analysis --fail-on-new --json`` in a child
+   process, exit 0 (files, findings and its milliseconds reported); (b)
+   the host-sync meter at full width: qwen1.5-0.5b, knapsack 0.75 at
+   128x128, fp32, on the graphed engine (phase 3's params), phase 3's
+   8 requests over 4 slots (shared prefix, every other one sampled), 4
+   ticks per sync: a warm-up stream then a steady one on each of two
+   engines, the second engine's steady stream under
+   ``analysis.runtime.no_host_sync(strict=True)`` (every Python pull
+   hook patched and CUDA's sync-debug mode "error").  Gated: no
+   ``HostSyncError`` and no sync-debug error; pulls only under the
+   ``admission`` and ``decode_chunk`` tags; ``decode_chunk`` regions
+   equal to the chunks and ``admission`` regions to the admitted
+   requests (the engine's counters and the process-wide ones);
+   ``compile_caches`` and ``compile_events`` unchanged over the steady
+   stream; exact launch counts; every stream equal to the unmetered
+   engine's.  tok/s with and without the meter reported; (c) the two
+   remaining examples on the card: ``paper.serve_pruned`` (its own
+   checks: packed == masked dense within 1e-6 at reconstruction, one
+   decode step within atol 1e-3 / rtol 1e-4; ``bsr_matmul`` launched)
+   and ``paper.train_lm_pruned`` at its default size (the loss falls,
+   Algorithm 2's iterations print).
+
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository beside it, the script exits non-zero and prints
 no result.  Details go to ``build/chip_smoke.json``.
@@ -3540,6 +3563,188 @@ def mesh_path(torch, dev, gpu_line, spec=MESH):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the analysis package — the lint, the host-sync meter, examples
+# ---------------------------------------------------------------------------
+
+def lint_run() -> dict:
+    """(a) ``python -m repro_torch.analysis --fail-on-new --json`` in a
+    child process from the repository root; it must exit 0."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--fail-on-new", "--json"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 11 (a): the lint exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    rep = json.loads(proc.stdout)
+    rep["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"  (a) lint: {rep['files_scanned']} files, {rep['findings']} findings "
+        f"({rep['new']} new, {rep['baselined']} baselined, "
+        f"{rep['inline_suppressed']} inline-suppressed, "
+        f"{rep['stale_baseline_entries']} stale) {rep['by_rule']} in "
+        f"{rep['runtime_ms']:.0f} ms ({rep['wall_ms']:.0f} ms with the child "
+        "process)")
+    return rep
+
+
+def metered_pass(torch, eng, prompts, gen):
+    """``serve_pass`` with the engine's run under
+    ``no_host_sync(strict=True)`` and ``measure_pulls()``: the card is
+    synchronised before and after the meter, never inside it."""
+    from repro_torch.analysis import runtime as art
+    from repro_torch.kernels import _build
+    from repro_torch.serving import RequestStatus
+    first = eng._next_rid
+    ticks0, chunks0 = eng.decode_ticks, sum(eng.chunks_by_ticks.values())
+    submit_traffic(eng, prompts, gen, sampled=True)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    regions0 = art.region_counts()
+    t0 = time.perf_counter()
+    with art.no_host_sync(strict=True), art.measure_pulls() as pulls:
+        done = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    regions = {k: v - regions0.get(k, 0) for k, v in art.region_counts().items()
+               if v != regions0.get(k, 0)}
+    mine = {rid: r for rid, r in done.items() if rid >= first}
+    if len(mine) != len(prompts) or any(
+            r.status is not RequestStatus.FINISHED or len(r.tokens) != gen
+            for r in mine.values()):
+        raise AssertionError("phase 11 (b): a metered stream failed or ended "
+                             "short")
+    emitted = sum(len(r.tokens) for r in mine.values())
+    return dict(done=mine, seconds=dt, decode_ticks=eng.decode_ticks - ticks0,
+                chunks=sum(eng.chunks_by_ticks.values()) - chunks0,
+                admissions=len(mine), launches=dict(_build.launch_counts),
+                tok_per_s=emitted / dt, pulls=dict(pulls), regions=regions)
+
+
+def meter_run(torch, dev, gpu_line, qwen=None) -> dict:
+    """(b) full-width qwen on the graphed engine: an unmetered engine
+    (warm-up stream, steady stream) and a metered one (warm-up stream,
+    steady stream under the meter), the same rids and keys in both."""
+    from repro_torch.serving import ServingEngine
+    if qwen is None:
+        from repro_torch.configs import get_config
+        from repro_torch.launch import serve
+        base = get_config("qwen1.5-0.5b")
+        cfg = base.replace(param_dtype="float32", activ_dtype="float32")
+        params, _ = serve.build_params(cfg, seed=0, device=dev, pruned=0.75,
+                                       block=(128, 128), min_size=4096)
+        qwen = (params, cfg, traffic(base.vocab, 0), 16)
+    params, cfg, prompts, gen = qwen
+
+    def engine():
+        return ServingEngine(params, cfg, num_slots=4, page_size=8,
+                             max_seq_len=max(len(p) for p in prompts) + gen,
+                             ticks_per_sync=4, device=dev, cuda_graphs=True)
+
+    plain = engine()
+    serve_pass(torch, plain, prompts, gen, sampled=True)        # captures
+    steady = serve_pass(torch, plain, prompts, gen, sampled=True)
+    eng = engine()
+    serve_pass(torch, eng, prompts, gen, sampled=True)          # captures
+    before = eng.analysis_stats()
+    run = metered_pass(torch, eng, prompts, gen)
+    after = eng.analysis_stats()
+    gate_launches("qwen1.5-0.5b", "phase 11 metered pass", cfg.n_layers, run)
+    same_streams("phase 11 (b): metered vs unmetered streams", run["done"],
+                 steady["done"])
+    d_regions = {k: after["sync_regions"][k] - before["sync_regions"][k]
+                 for k in after["sync_regions"]}
+    failures = []
+    if set(run["pulls"]) - {"admission", "decode_chunk"}:
+        failures.append(f"pulls under other tags: {run['pulls']}")
+    want = {"decode_chunk": run["chunks"], "admission": run["admissions"]}
+    if d_regions != want:
+        failures.append(f"engine regions {d_regions} != {want}")
+    if run["regions"] != want:
+        failures.append(f"process regions {run['regions']} != {want}")
+    for key in ("compile_caches", "compile_events"):
+        if after[key] != before[key]:
+            failures.append(f"{key} {before[key]} -> {after[key]}")
+    if failures:
+        raise AssertionError("phase 11 (b): " + "; ".join(failures))
+    rep = dict(tok_per_s_unmetered=steady["tok_per_s"],
+               tok_per_s_metered=run["tok_per_s"],
+               seconds_unmetered=steady["seconds"], seconds_metered=run["seconds"],
+               chunks=run["chunks"], admissions=run["admissions"],
+               decode_ticks=run["decode_ticks"], pulls=run["pulls"],
+               regions=d_regions, compile_caches=after["compile_caches"],
+               compile_events=after["compile_events"],
+               variants=after["variants"], launches=run["launches"])
+    log(f"  (b) meter: {run['admissions']} requests, {run['chunks']} chunks "
+        f"({run['decode_ticks']} ticks) under no_host_sync(strict=True) + "
+        f"sync-debug 'error': 0 stray pulls; pulls by tag {run['pulls']}; "
+        f"regions {d_regions}; compile caches {after['compile_caches']} and "
+        f"{after['compile_events']} compile events, unchanged; streams == "
+        f"unmetered; {run['tok_per_s']:.1f} tok/s metered vs "
+        f"{steady['tok_per_s']:.1f} unmetered on {gpu_line}")
+    return rep
+
+
+def examples_run(torch, dev, gpu_line) -> dict:
+    """(c) ``paper.serve_pruned`` and ``paper.train_lm_pruned`` (default
+    size) on the card."""
+    from repro_torch.kernels import _build
+    from repro_torch.paper import serve_pruned, train_lm_pruned
+    out = {}
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    sp = serve_pruned.run(dev, log=lambda line: log(f"    {line}"))
+    launches = dict(_build.launch_counts)
+    if launches["bsr_matmul"] < 1:
+        raise AssertionError("phase 11 (c): serve_pruned never launched "
+                             "bsr_matmul")
+    out["serve_pruned"] = dict(seconds=time.perf_counter() - t0,
+                               launches=launches, kept=sp["kept"],
+                               total=sp["total"],
+                               recon_max_abs_err=sp["recon_max_abs_err"],
+                               decode_max_abs_err=sp["decode_max_abs_err"])
+    log(f"  (c) serve_pruned: kept {sp['kept']}/{sp['total']}, reconstruction "
+        f"max |diff| {sp['recon_max_abs_err']:.3g}, decode step max |diff| "
+        f"{sp['decode_max_abs_err']:.3g}, launches {launches}, "
+        f"{out['serve_pruned']['seconds']:.1f}s")
+    t0 = time.perf_counter()
+    tr = train_lm_pruned.run(device=dev, log=lambda line: log(f"    {line}"))
+    m = tr["result"]["metrics"]
+    first, last = m[0]["total_loss"], m[-1]["total_loss"]
+    if not last < first or not tr["logs"]:
+        raise AssertionError(f"phase 11 (c): train_lm_pruned loss {first} -> "
+                             f"{last}, {len(tr['logs'])} prune iterations")
+    out["train_lm_pruned"] = dict(
+        seconds=time.perf_counter() - t0, loss_first=first, loss_last=last,
+        prune=[dict(iteration=it.iteration, metric=it.metric,
+                    structure_sparsity=it.structure_sparsity)
+               for it in tr["logs"]])
+    log(f"  (c) train_lm_pruned: loss {first:.3f} -> {last:.3f}, "
+        f"{len(tr['logs'])} prune iterations, "
+        f"{out['train_lm_pruned']['seconds']:.1f}s on {gpu_line}")
+    return out
+
+
+def analysis_path(torch, dev, gpu_line, qwen=None) -> dict:
+    """Phase 11: (a) the lint, (b) the meter at full width (on ``qwen`` =
+    phase 3's (params, config, prompts, gen) when given), (c) the two
+    examples."""
+    t0 = time.perf_counter()
+    rep = {"lint": lint_run()}
+    t1 = time.perf_counter()
+    rep["meter"] = meter_run(torch, dev, gpu_line, qwen)
+    t2 = time.perf_counter()
+    rep["examples"] = examples_run(torch, dev, gpu_line)
+    rep["seconds"] = dict(lint=t1 - t0, meter=t2 - t1,
+                          examples=time.perf_counter() - t2,
+                          total=time.perf_counter() - t0)
+    log(f"  phase 11 took {rep['seconds']['total']:.1f}s "
+        f"(lint {rep['seconds']['lint']:.1f}, meter {rep['seconds']['meter']:.1f}, "
+        f"examples {rep['seconds']['examples']:.1f})")
+    return rep
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times at the main paths' shapes
 # ---------------------------------------------------------------------------
 
@@ -4044,6 +4249,12 @@ def main() -> int:
                 f"{[(b.shape, b.max_nnz) for _, b in real]}")
 
     serving = serving_runs(torch, dev, gpu_line, paths)
+    log("phase 11: the analysis package: (a) the lint, (b) the host-sync "
+        "meter on qwen1.5-0.5b full width, graphed, (c) the two remaining "
+        "examples")
+    analysis_rep = analysis_path(torch, dev, gpu_line,
+                                 paths["qwen1.5-0.5b"][4])
+    log(f"  phase 11 done at {time.perf_counter() - t_start:.1f}s")
     for p in paths.values():
         del p[4]
     torch.cuda.empty_cache()
@@ -4107,6 +4318,7 @@ def main() -> int:
                   serving=serving, train_path=train_rep, paper_path=paper_rep,
                   recurrent_path=recurrent_rep, family_path=family_rep,
                   a2a_path=a2a_rep, mesh_path=mesh_rep,
+                  analysis_path=analysis_rep,
                   kernels=kernels, seconds=time.perf_counter() - t_start)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(REPORT, indent=1))

@@ -16,7 +16,8 @@ one where it launches its kernel, and nowhere else.  A CUDA graph
 launches its kernels without calling the wrappers: ``recorded_launches``
 takes back what the wrappers counted while the graph was captured (a
 capture launches nothing) and keeps it, and ``add_launches`` adds it at
-every replay (``serving/graphs.py``).
+every replay (``serving/graphs.py``).  Each library load counts in
+``analysis.runtime.compile_events``, as a graph capture does.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterator
+
+from repro_torch.analysis import runtime as analysis_runtime
 
 __all__ = [
     "SOURCES", "NVCC_FLAGS", "build_all", "build_logs", "library", "check",
@@ -152,6 +155,7 @@ def library(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all()
         lib = ctypes.CDLL(str(path))
+        analysis_runtime.count_compile()
         lib.repro_error_string.restype = ctypes.c_char_p
         lib.repro_error_string.argtypes = [ctypes.c_int]
         _LIBS[name] = lib

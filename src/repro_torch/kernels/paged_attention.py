@@ -119,8 +119,10 @@ def paged_attention_decode_plain(q, k_new, v_new, k_pool, v_pool, page_table,
     seg = pages_per_step * ps
     offs = torch.arange(ps, device=dev)
     page_idx = torch.arange(pages_per_step, device=dev)
-    n_steps = _cdiv(int(clen.max()), seg) if b else 0
-    for j in range(n_steps):
+    # the whole table, not the longest row's pages: a step past every
+    # row's length changes nothing (r = 1, p = 0), and the step count
+    # needs no read of the lengths on the host
+    for j in range(_cdiv(max_pages, pages_per_step) if b else 0):
         idx = j * pages_per_step + page_idx                # logical pages
         pid = table[:, idx.clamp(max=max_pages - 1)]       # (B, pps)
         kp = k_pool[pid].reshape(b, seg, kvh, dh).to(torch.float32)

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.analysis import runtime as analysis_runtime
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (_check_ported, _select_token_rows,
@@ -481,18 +482,17 @@ class ServingEngine:
             self._tables[slot] = NULL_PAGE
             self._tables[slot, :total] = pages
             start = n_hit * self.pool.page_size
-            dev = self.device
             first, ok = _paged_prefill_step(
-                self.params,
-                torch.as_tensor(req.prompt[start:][None], device=dev),
-                self.caches,
-                torch.as_tensor(self._tables[slot][None], device=dev), slot,
+                self.params, self._upload(req.prompt[start:][None]),
+                self.caches, self._upload(self._tables[slot][None]), slot,
                 cfg=self.cfg, fresh_rows=self._fresh_rows, start=start,
                 guard=self.nan_guard)
-            # ONE host round-trip per admission: first token + guard flag
-            # (the request's key is folded on the host)
-            self.sync_regions["admission"] += 1
-            first_ok = torch.stack([first[0], ok.to(torch.int32)]).cpu().numpy()
+            # ONE declared host round-trip per admission: first token,
+            # guard flag and the request's decode key (folded on the host)
+            with analysis_runtime.sync_region("admission"):
+                self.sync_regions["admission"] += 1
+                first_ok = torch.stack([first[0], ok.to(torch.int32)]).cpu().numpy()
+                key = self.request_key(req.rid).numpy().astype(np.uint32)
             if self.nan_guard and not bool(first_ok[1]):
                 self.guard_trips += 1
                 self.failed += 1
@@ -516,7 +516,7 @@ class ServingEngine:
                     self.prefix_hit_requests += 1
                 self.prefix_pages_shared += n_hit
             self._tok[slot, 0] = tok
-            self._rngs[slot] = self.request_key(req.rid).numpy().astype(np.uint32)
+            self._rngs[slot] = key
             t, k, p = self.sampling_for(req)
             self._temp[slot] = t
             self._topk[slot] = k if k is not None else 0
@@ -527,6 +527,15 @@ class ServingEngine:
             count += 1
             self._maybe_finish(slot)
         return count
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device.  On the card it goes
+        through pinned memory without blocking the host: a pageable copy
+        waits for the card, a host sync that ``no_host_sync`` refuses."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _cow_guard(self, active: List[int], ticks: int) -> None:
         """Copy-on-write before a decode chunk: no row may write into a
@@ -734,9 +743,9 @@ class ServingEngine:
         one copy in and ONE device-to-host transfer out."""
         if self.graphs is not None:
             return self.graphs(packed, ticks, sampled)
-        out = self._chunk_fn(torch.as_tensor(packed, device=self.device),
-                             ticks, sampled)
-        return out.cpu().numpy()
+        out = self._chunk_fn(self._upload(packed), ticks, sampled)
+        with analysis_runtime.sync_region("decode_chunk"):
+            return out.cpu().numpy()
 
     def step(self) -> int:
         """One scheduler event: fault/lifecycle servicing, admission, then
@@ -886,15 +895,27 @@ class ServingEngine:
 
     def analysis_stats(self) -> Dict[str, object]:
         """Runtime counters behind "nothing new is captured in steady
-        state, one declared transfer per chunk": whether chunks run as
-        CUDA graphs, the captured ``(ticks, sampled)`` variants with their
-        capture seconds, replays and launches per replay, and the declared
-        host sync regions (one ``decode_chunk`` per chunk, one
-        ``admission`` per admitted request)."""
+        state, one declared transfer per chunk", under the reference's
+        names: the compile caches of the two hot-path entry points (the
+        captured ``(ticks, sampled)`` variants of ``_decode_chunk``; -1
+        for an eager chunk and for ``_paged_prefill_step``, which always
+        runs eagerly), the process-wide count of graph captures and kernel
+        library loads, and the declared host sync regions (one
+        ``decode_chunk`` per chunk, one ``admission`` per admitted
+        request); beside them whether chunks run as CUDA graphs and each
+        variant's capture seconds, replays and launches per replay."""
         graphs = (self.graphs.stats() if self.graphs is not None
                   else {"captures": 0, "variants": []})
-        return {"cuda_graphs": int(self.graphs is not None), **graphs,
-                "sync_regions": dict(self.sync_regions)}
+        return {
+            "compile_caches": {
+                "_decode_chunk": analysis_runtime.cache_size(self.graphs),
+                "_paged_prefill_step": analysis_runtime.cache_size(
+                    _paged_prefill_step),
+            },
+            "compile_events": analysis_runtime.compile_events(),
+            "sync_regions": dict(self.sync_regions),
+            "cuda_graphs": int(self.graphs is not None), **graphs,
+        }
 
     def release_prefix_cache(self) -> int:
         """Drop every cached prefix block; pages still mapped by active

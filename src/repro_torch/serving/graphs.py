@@ -15,10 +15,15 @@ and returns ONE packed int32 output block, so a replay is
    input,
 2. ``CUDAGraph.replay()``,
 3. one device-to-host copy of the packed outputs into a pinned buffer,
-   then a wait on the stream — the chunk's one declared transfer.
+   then a wait on the stream — the chunk's one declared transfer, inside
+   ``analysis.runtime.sync_region("decode_chunk")``.
 
 Steps 1–3 run under ``torch.cuda.set_sync_debug_mode("error")``: a
-hidden host sync inside a replay raises.
+hidden host sync inside a replay raises.  A capture is the counterpart
+of a compile: it counts in ``analysis.runtime.compile_events`` and runs
+inside the chunk's declared region (its warm-up result is the chunk's
+transfer), and ``_cache_size`` gives the captured variants to
+``analysis.runtime.cache_size``.
 
 The first call of a variant captures it, as PyTorch's graph recipe
 does: the chunk runs once eagerly on a side stream (that run is the
@@ -47,6 +52,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import runtime as analysis_runtime
 from repro_torch.kernels import _build
 
 __all__ = ["ChunkGraphs", "GraphFailure"]
@@ -116,27 +122,34 @@ class ChunkGraphs:
                  sampled: bool) -> np.ndarray:
         """Run one chunk; returns its packed outputs on the host."""
         self.host_in.numpy()[:] = packed_in
-        key = (int(ticks), bool(sampled))
-        g = self.graphs.get(key)
+        variant = (int(ticks), bool(sampled))
+        g = self.graphs.get(variant)
         if g is None:
-            return self._capture(key)
+            return self._capture(variant)
         stream = torch.cuda.current_stream(self.device)
         try:
             with _sync_debug_error():
                 self.static_in.copy_(self.host_in, non_blocking=True)
                 g.graph.replay()
-                g.host_out.copy_(g.out, non_blocking=True)
-            stream.synchronize()
+            with analysis_runtime.sync_region("decode_chunk"):
+                with _sync_debug_error():
+                    g.host_out.copy_(g.out, non_blocking=True)
+                stream.synchronize()
         except RuntimeError as err:
-            raise GraphFailure(f"replay of decode chunk {key} failed: "
+            raise GraphFailure(f"replay of decode chunk {variant} failed: "
                                f"{err}") from err
         g.replays += 1
         _build.add_launches(g.launches)
         return g.host_out.numpy().copy()
 
-    def _capture(self, key: Variant) -> np.ndarray:
-        ticks, sampled = key
+    def _capture(self, variant: Variant) -> np.ndarray:
+        with analysis_runtime.sync_region("decode_chunk"):
+            return self._capture_in_region(variant)
+
+    def _capture_in_region(self, variant: Variant) -> np.ndarray:
+        ticks, sampled = variant
         t0 = time.perf_counter()
+        analysis_runtime.count_compile()
         try:
             self.static_in.copy_(self.host_in)
             side = torch.cuda.Stream(self.device)
@@ -151,14 +164,18 @@ class ChunkGraphs:
                     out = self.fn(self.static_in, ticks, sampled)
             torch.cuda.synchronize(self.device)
         except RuntimeError as err:
-            raise GraphFailure(f"capture of decode chunk {key} failed: "
+            raise GraphFailure(f"capture of decode chunk {variant} failed: "
                                f"{err}") from err
-        self.graphs[key] = _Graph(
+        self.graphs[variant] = _Graph(
             graph=graph, out=out,
             host_out=torch.empty(out.shape, dtype=out.dtype, pin_memory=True),
             launches=launches,
             capture_seconds=time.perf_counter() - t0)
         return host
+
+    def _cache_size(self) -> int:
+        """Captured variants (read by ``analysis.runtime.cache_size``)."""
+        return len(self.graphs)
 
     def stats(self) -> Dict[str, object]:
         """Captured variants (``"<ticks>/greedy|sampled"``), each one's

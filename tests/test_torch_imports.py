@@ -50,7 +50,12 @@ def test_port_imports_neither_jax_nor_reference_package():
             "configs/mixtral_8x7b.py", "configs/command_r_plus_104b.py",
             "distributed/__init__.py", "distributed/sharding.py",
             "distributed/spawn.py", "models/moe_alltoall.py",
-            "optim/compression.py", "launch/mesh.py"} <= scanned
+            "optim/compression.py", "launch/mesh.py",
+            "analysis/__init__.py", "analysis/__main__.py", "analysis/lint.py",
+            "analysis/runtime.py", "analysis/rules/__init__.py",
+            "analysis/rules/host_sync.py", "analysis/rules/prng.py",
+            "analysis/rules/recompile.py", "analysis/rules/kernels.py",
+            "paper/serve_pruned.py", "paper/train_lm_pruned.py"} <= scanned
     for path in _port_files():
         for lineno, mod in _imported_modules(path):
             if mod.split(".")[0] in FORBIDDEN:
