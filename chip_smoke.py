@@ -104,15 +104,21 @@ Phases, any failure ends the run with a non-zero exit code:
 
 5. (run before phase 4) the training entry point's code
    (``repro_torch.launch.train``) on full-width qwen1.5-0.5b in its own
-   dtypes (bf16 params and activations, fp32 AdamW master weights, each
-   layer recomputed in the backward pass): 20 steps at B 8, S 128 under
+   dtypes (bf16 params and activations, fp32 AdamW master weights, its
+   config's remat "dots": each layer's projections kept in fp32 for the
+   backward pass, the rest recomputed): 20 steps at B 8, S 128 under
    ``warmup_cosine(3e-4, 3, 20)``, gated on finite losses whose last 5
-   average below the first 5; an asynchronous checkpoint at step 10 and
-   a fresh trainer resumed from it, its step-11 loss within 1e-2
-   relative of the uninterrupted run's; Algorithm 2 (constant steps of
-   0.1 to 0.5, tolerance 0.05, 128x128 tiles over the attention and MLP
-   weights, 10 fine-tune steps per iteration), gated on an iteration
-   with pruned structures; the survivors packed to BSR and
+   average below the first 5; then 3 steps under remat "full" and 3
+   under "dots" from the trained state on the same batches, the losses
+   within 1e-2 relative (ms per step, the card's busy share and
+   ``max_memory_allocated`` reported for each); an asynchronous
+   checkpoint at step 10 and a fresh trainer resumed from it, its
+   step-11 loss within 1e-2 relative of the uninterrupted run's;
+   Algorithm 2 (constant steps of 0.1 to 0.5, tolerance 0.05, 128x128
+   tiles over the reference launcher's structures: the attention and
+   MLP weights and the embedding, 10 fine-tune steps per iteration),
+   gated on an iteration with pruned structures; the attention and MLP
+   survivors packed to BSR (the masked embedding dense) and
    ``lm_forward`` on them held against the masked dense params (an fp32
    copy within 1e-3 of the largest |logit|, bf16 reported) with exactly
    7 x 24 BSR launches per forward; 4 requests served from the packed
@@ -246,7 +252,7 @@ Phases, any failure ends the run with a non-zero exit code:
 
 10. (run before phase 4) the sharded program and its dry-run, in child
    processes: (a) one NCCL rank, mesh (1, 1): full-width qwen1.5-0.5b in
-   phase 5's dtypes (bf16, fp32 master, remat), B 8 x S 128, 3 train
+   phase 5's dtypes (bf16, fp32 master, remat "dots"), B 8 x S 128, 3 train
    steps on plain state and 3 on DTensor state placed by
    ``launch.specs.cell_shardings`` under the train rules, the losses
    within phase 5's resume tolerance, and the per-rank counter over one
@@ -259,8 +265,9 @@ Phases, any failure ends the run with a non-zero exit code:
    leaf within 1e-4 of its max of the plain step's (every collective
    staged through the host: gloo's CPU path); (c) ``launch.dryrun`` of
    qwen1.5-0.5b and granite-moe-1b-a400m, train_4k and decode_32k, on
-   the 256-rank fake group at full width (CPU only, started first and
-   overlapping (a) and (b)), every record "ok".
+   the 256-rank fake group at full width under their configs' remat
+   "dots" (CPU only, started first and overlapping (a) and (b)), every
+   record "ok".
 
 11. (run after phase 3b) the analysis package: (a) the port's lint,
    ``python -m repro_torch.analysis --fail-on-new --json`` in a child
@@ -1694,6 +1701,9 @@ def serving_runs(torch, dev, gpu_line, paths):
 
 TRAIN = dict(arch="qwen1.5-0.5b", steps=20, batch=8, seq=128, lr=3e-4,
              seed=0, ckpt_every=10, target=0.5)
+# phase 5's remat sub-step: steps under each policy from the trained state
+REMAT_STEPS = 3
+REMAT_LOSS_TOL = 1e-2      # "full" vs "dots" losses: phase 5's resume gate
 
 
 def counted(segments, name, fn):
@@ -1729,15 +1739,103 @@ def training_busy(torch, step_fn, state, pipe, steps=(10, 11)):
     return busy
 
 
+def remat_compare(torch, cfg, state, pipe, opt_cfg, gpu_line):
+    """Phase 5's remat sub-step: ``REMAT_STEPS`` train steps under "full"
+    (only each layer's inputs kept) and under "dots" (the projections'
+    fp32 outputs kept too) from the same trained state on the same
+    batches, the losses gated within ``REMAT_LOSS_TOL`` relative.  For
+    each: ms per step, the card's busy share over the steps run again
+    under the profiler, and ``torch.cuda.max_memory_allocated`` from a
+    reset just before (the trained state, held throughout, included);
+    then one forward and backward of the loss on the trained params
+    alone: the bytes still allocated after the forward (what the
+    backward keeps) and the peak, both above what was allocated before."""
+    from repro_torch.core.masks import map_tree
+    from repro_torch.models import cross_entropy_loss, lm_forward
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import make_train_step
+    sched = warmup_cosine(TRAIN["lr"], TRAIN["steps"] // 10 + 1, TRAIN["steps"])
+    out = {}
+
+    def forward_backward(c):
+        p = map_tree(lambda t: t.detach().requires_grad_(True), state["params"])
+        batch = pipe.batch_at(30_000)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        logits, _ = lm_forward(p, batch, c)
+        loss = cross_entropy_loss(logits, batch["labels"])
+        kept = torch.cuda.memory_allocated() - base
+        loss.backward()
+        torch.cuda.synchronize()
+        return kept, torch.cuda.max_memory_allocated() - base
+
+    for remat in ("full", "dots"):
+        c = cfg.replace(remat=remat)
+        step = make_train_step(c, opt_cfg, sched)
+
+        def run():
+            st, losses, ms = state, [], []
+            for s in range(REMAT_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, m = step(st, pipe.batch_at(30_000 + s))
+                losses.append(float(m["total_loss"]))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return losses, ms
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = run()
+        peak = torch.cuda.max_memory_allocated()
+        busy = device_busy(torch, run, sum(ms) / 1e3)
+        kept, fb_peak = forward_backward(c)
+        out[remat] = dict(losses=losses, ms=ms, ms_per_step_median=statistics.median(ms),
+                          peak_bytes=peak, peak_above_state=peak - base,
+                          after_forward_bytes=kept, forward_backward_peak_bytes=fb_peak,
+                          device={k: v for k, v in busy.items() if k != "top"})
+    errs = [abs(a - b) / abs(b) for a, b in zip(out["dots"]["losses"],
+                                                out["full"]["losses"])]
+    out["loss_rel_err"] = errs
+    if max(errs) > REMAT_LOSS_TOL:
+        raise AssertionError(f"phase 5 remat: dots losses {out['dots']['losses']} "
+                             f"vs full {out['full']['losses']} (relative {errs})")
+    for remat in ("full", "dots"):
+        r = out[remat]
+        share = r["device"]["busy_share"]
+        log(f"  remat {remat!r}: {REMAT_STEPS} steps from the trained state, "
+            f"losses {[round(x, 6) for x in r['losses']]}; ms per step "
+            f"{[round(x, 1) for x in r['ms']]} (median {r['ms_per_step_median']:.1f}); "
+            f"card busy "
+            + (f"{100 * share:.1f}% ({r['device']['device_busy_ms'] / REMAT_STEPS:.1f} "
+               f"ms of device time a step)" if isinstance(share, float) else
+               f"not measured ({r['device'].get('error')})")
+            + f"; torch.cuda.max_memory_allocated {r['peak_bytes'] / 2**30:.3f} GiB "
+            f"({r['peak_above_state'] / 2**30:.3f} GiB above the held state); "
+            f"one forward + backward of the loss: {r['after_forward_bytes'] / 2**30:.3f} "
+            f"GiB held after the forward, peak {r['forward_backward_peak_bytes'] / 2**30:.3f} "
+            f"GiB; on {gpu_line}")
+    log(f"  remat: dots vs full losses within {max(errs):.2e} relative (gate "
+        f"{REMAT_LOSS_TOL}); step peak dots - full "
+        f"{(out['dots']['peak_bytes'] - out['full']['peak_bytes']) / 2**30:+.3f} GiB; "
+        f"held after the forward dots - full "
+        f"{(out['dots']['after_forward_bytes'] - out['full']['after_forward_bytes']) / 2**30:+.3f} GiB")
+    return out
+
+
 def train_path(torch, dev, gpu_line):
     """The training entry point's code (``repro_torch.launch.train``) on
     full-width qwen1.5-0.5b in its own dtypes (bf16 params and
-    activations, fp32 AdamW master, remat per layer): 20 steps at B 8, S
-    128 with an asynchronous checkpoint at step 10; a fresh trainer
-    resumed from it; Algorithm 2 at 128x128 tiles over the attention and
-    MLP weights; the survivors packed to BSR; ``lm_forward`` packed
-    against masked dense (fp32 copy gated, bf16 reported) with exact BSR
-    launch counts; 4 requests served from the fp32 packed params through
+    activations, fp32 AdamW master, its config's remat "dots"): 20 steps
+    at B 8, S 128 with an asynchronous checkpoint at step 10; the remat
+    sub-step (``remat_compare``); a fresh trainer resumed from the
+    checkpoint; Algorithm 2 at 128x128 tiles over the reference
+    launcher's structures (the embedding too); the survivors packed
+    (``launch.train.pack_pruned``); ``lm_forward`` packed against masked
+    dense (fp32 copy gated, bf16 reported) with exact BSR launch counts;
+    4 requests served from the fp32 packed params through
     ``ServingEngine``, each stream equal to solo ``lm_generate``.
     Returns (report, {dtype: Capture of the packed forward}, launches)."""
     import math
@@ -1753,7 +1851,7 @@ def train_path(torch, dev, gpu_line):
     from repro_torch.launch import train as launch_train
     from repro_torch.models import lm_forward
     from repro_torch.serving import ServingEngine
-    from repro_torch.sparse import pack_params, sparsity_summary
+    from repro_torch.sparse import sparsity_summary
 
     t_phase = time.perf_counter()
     arch = TRAIN["arch"]
@@ -1808,6 +1906,8 @@ def train_path(torch, dev, gpu_line):
     if isinstance(share, float):
         for row in busy["top"][:5]:
             log(f"    {row['ms']:9.3f} ms {row['calls']:6d} calls  {row['name']}")
+    rep["remat"] = counted(segments, "remat", lambda: remat_compare(
+        torch, cfg, trainer.state, pipe, opt_cfg, gpu_line))
 
     # --- 2. checkpoint at 10 and resume -------------------------------------
     steps_saved = trainer.ckpt.committed_steps()
@@ -1865,20 +1965,23 @@ def train_path(torch, dev, gpu_line):
                         structures=structures.total_structures)
     for it in iters:
         log(f"  prune it={it['iteration']} s={it['sparsity']} metric "
-            f"{it['metric']:.4f} structs {100 * it['structure_sparsity']:.1f}% "
+            f"{it['metric']:.4f} structs={100 * it['structure_sparsity']:.1f}% "
+            f"mxu_red={it['reduction'][0]:.2f}x hbm_red={it['reduction'][1]:.2f}x "
             f"({it['knapsack_method']}): {it['seconds']:.2f}s = knapsack "
             f"{it['knapsack_seconds']:.3f}s + fine-tune "
             f"{it['finetune_seconds']:.2f}s + eval/report")
-    log(f"  Algorithm 2 over {structures.total_structures} tiles of 128x128: "
-        f"{len(logs)} iterations in {prune_s:.1f}s{note}; on {gpu_line}")
+    log(f"  Algorithm 2 over {structures.total_structures} tiles of 128x128 "
+        f"({len(structures.infos)} weights, the embedding's "
+        f"{sum(i.num_structures for i in structures.infos if i.path.startswith('embed'))} "
+        f"among them): {len(logs)} iterations in {prune_s:.1f}s{note}; on {gpu_line}")
 
     # --- 4. packed against masked dense ---------------------------------------
     ev = pipe.batch_at(10_000)
     cfg32 = cfg.replace(param_dtype="float32", activ_dtype="float32")
     p32 = map_tree(lambda t: t.float(), params)
     m32 = map_tree(lambda t: None if t is None else t.float(), masks)
-    packed32 = pack_params(p32, m32, structures)
-    packed16 = pack_params(params, masks, structures)
+    packed32 = launch_train.pack_pruned(p32, m32)
+    packed16 = launch_train.pack_pruned(params, masks)
     summ = sparsity_summary(packed32)
     want_bsr = PER_LAYER[arch]["bsr_matmul"] * n_layers
     forwards = {}
@@ -3200,7 +3303,7 @@ def a2a_path(torch, dev, gpu_line, spec=A2A):
 # ---------------------------------------------------------------------------
 
 # phase 5's cell: full-width qwen1.5-0.5b in its own dtypes (bf16, fp32
-# master, remat), B 8 x S 128, 3 steps each way; (b) one fp32 step
+# master, remat "dots"), B 8 x S 128, 3 steps each way; (b) one fp32 step
 MESH = dict(arch="qwen1.5-0.5b", batch=8, seq=128, steps=3, seed=0,
             smoke=False, device="cuda")
 MESH_LOSS_TOL = 1e-2       # (a), DTensor vs plain losses: phase 5's resume gate
@@ -3455,7 +3558,8 @@ def mesh_gate_single(a, fake, spec, gpu_line):
                                  f"({key} {real[key]}) differs from the "
                                  f"dry-run's fake trace ({fake[key]})")
     share = a["device"]["busy_share"]
-    log(f"  (a) {spec['arch']} full width (bf16, fp32 master, remat), B "
+    log(f"  (a) {spec['arch']} full width (bf16, fp32 master, remat "
+        f"{mesh_config(spec).remat!r}), B "
         f"{spec['batch']} x S {spec['seq']}, one NCCL rank, mesh (1, 1): "
         f"losses DTensor {[round(x, 6) for x in a['sharded']]} vs plain "
         f"{[round(x, 6) for x in a['plain']]} (worst relative {max(errs):.2e}, "
@@ -3503,8 +3607,13 @@ def mesh_path(torch, dev, gpu_line, spec=MESH):
     (CPU only, child processes started first), (a) one NCCL rank, (b) two
     gloo ranks on the card; the gates and the report."""
     import tempfile
+    from repro_torch.configs import get_config
     from repro_torch.distributed import run_ranks
     t0 = time.perf_counter()
+    for arch in {spec["arch"], *MESH_DRYRUN["archs"]}:
+        if get_config(arch).remat != "dots":
+            raise AssertionError(f"phase 10: {arch} trains under remat "
+                                 f"{get_config(arch).remat!r}, not 'dots'")
     OUT.mkdir(exist_ok=True)
     dry_out = OUT / "dryrun_phase10"
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -3546,7 +3655,8 @@ def mesh_path(torch, dev, gpu_line, spec=MESH):
             cells[f"{arch}/{shape}"] = {k: rec[k] for k in (
                 "dominant", "useful_ratio", "compute_s", "memory_s",
                 "collective_s", "lower_s", "compile_s", "memory_stats")}
-            log(f"  (c) dry-run {arch} {shape} on 256 fake ranks (16 x 16): "
+            log(f"  (c) dry-run {arch} {shape} on 256 fake ranks (16 x 16), "
+                f"remat {get_config(arch).remat!r}: "
                 f"dominant {rec['dominant']}, useful_ratio "
                 f"{rec['useful_ratio']:.3f}, per-device peak "
                 f"{rec['memory_stats']['peak_gb']:.2f} GB of the card's 80 GB, "

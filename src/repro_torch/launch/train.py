@@ -10,11 +10,12 @@ AdamW under a warmup-cosine schedule, through the fault-tolerant
 ``--prune`` then runs the paper's Algorithm 2 (``IterativePruner``):
 structure scores, the knapsack over the reference's TPU cost vectors at
 128x128 tiles, masks, a 10-step masked fine-tune per iteration and an
-evaluation, rolling back past the tolerance.  It prunes the attention
-and MLP (and expert) weights, the ones ``pack_params`` packs to BSR,
-where the reference's launcher also prunes the embedding; the survivors
-are then packed and the packed forward is held against the masked dense
-one.
+evaluation, rolling back past the tolerance.  It prunes the weights the
+reference's launcher prunes (``prune_structures``: every matmul weight
+of at least 4096 elements, the embedding and the router included).  The
+survivors are then packed (``pack_pruned``: the attention, MLP and
+expert weights as BSR, the masked embedding and router dense) and the
+packed forward is held against the masked dense one.
 
 The run is on the card unless ``--device cpu`` is given; without a card
 it fails rather than fall back.  ``--mesh single|multi`` builds the
@@ -36,7 +37,8 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-__all__ = ["build_trainer", "prune", "packed_forward_error", "main"]
+__all__ = ["build_trainer", "prune_structures", "prune", "pack_pruned",
+           "packed_forward_error", "main"]
 
 # Algorithm 2's settings, as the reference's launcher hard-codes them.
 PRUNE_BLOCK = (128, 128)
@@ -81,25 +83,46 @@ def build_trainer(cfg, *, steps: int, batch: int, seq: int, lr: float,
     return trainer, pipe, opt_cfg
 
 
+def prune_structures(params):
+    """The structures Algorithm 2 prunes, as the reference's launcher
+    builds them (``src/repro/launch/train.py:79-80``): ``PRUNE_BLOCK``
+    tiles of every matmul weight of at least ``PRUNE_MIN_SIZE`` elements
+    under ``build_structures``' default exclusions, so the embedding and
+    the router are pruned too."""
+    from repro_torch.core import BlockingSpec, build_structures
+    return build_structures(params, BlockingSpec(*PRUNE_BLOCK),
+                            min_size=PRUNE_MIN_SIZE)
+
+
+def pack_pruned(params, masks):
+    """The pruned params with what ``pack_params`` can pack packed: the
+    attention, MLP and expert weights (``DEFAULT_INCLUDE`` /
+    ``DEFAULT_EXCLUDE``) as BSR at ``PRUNE_BLOCK`` tiles, every other
+    leaf masked and dense (the embedding, which ``lm_forward`` looks up,
+    and the router)."""
+    from repro_torch.core import BlockingSpec, apply_masks, build_structures
+    from repro_torch.sparse import DEFAULT_EXCLUDE, DEFAULT_INCLUDE, pack_params
+    packable = build_structures(params, BlockingSpec(*PRUNE_BLOCK),
+                                include=DEFAULT_INCLUDE, exclude=DEFAULT_EXCLUDE,
+                                min_size=PRUNE_MIN_SIZE)
+    return pack_params(apply_masks(params, masks), masks, packable)
+
+
 def prune(params, cfg, pipe, opt_cfg, *, lr: float, target: float):
-    """Algorithm 2 over the attention and MLP weights, as the reference's
+    """Algorithm 2 over ``prune_structures(params)``, as the reference's
     launcher drives it: ``constant_step([target] * 2, 0.1)``, tolerance
-    0.05 on the eval loss (lower is better) over ``PRUNE_BLOCK`` tiles of
-    weights of at least ``PRUNE_MIN_SIZE`` elements, each iteration
-    fine-tuned for ``FINETUNE_STEPS`` steps with
-    ``warmup_cosine(lr / 3, 2, 20)`` on fresh optimizer state.  Returns (params, masks, logs, structures, pruner)."""
+    0.05 on the eval loss (lower is better), each iteration fine-tuned
+    for ``FINETUNE_STEPS`` steps with ``warmup_cosine(lr / 3, 2, 20)`` on
+    fresh optimizer state.  Returns (params, masks, logs, structures,
+    pruner)."""
     from repro_torch.core import (
-        BlockingSpec, IterativePruner, PruneConfig, TPUResourceModel,
-        apply_masks, build_structures, constant_step,
+        IterativePruner, PruneConfig, TPUResourceModel, apply_masks, constant_step,
     )
     from repro_torch.models import cross_entropy_loss, lm_forward
     from repro_torch.optim import warmup_cosine
-    from repro_torch.sparse import DEFAULT_EXCLUDE, DEFAULT_INCLUDE
     from repro_torch.train import init_train_state, make_train_step
 
-    structures = build_structures(params, BlockingSpec(*PRUNE_BLOCK),
-                                  include=DEFAULT_INCLUDE, exclude=DEFAULT_EXCLUDE,
-                                  min_size=PRUNE_MIN_SIZE)
+    structures = prune_structures(params)
     pruner = IterativePruner(
         structures,
         TPUResourceModel(precision=("bf16" if cfg.param_dtype == "bfloat16"
@@ -127,9 +150,9 @@ def prune(params, cfg, pipe, opt_cfg, *, lr: float, target: float):
 
 @torch.no_grad()
 def packed_forward_error(packed, params, masks, batch, cfg) -> Dict[str, Any]:
-    """``lm_forward`` on the packed params against ``lm_forward`` on the
-    masked dense params: the largest |difference| of the logits and the
-    largest |logit|."""
+    """``lm_forward`` on the packed params (``pack_pruned``) against
+    ``lm_forward`` on the masked dense params: the largest |difference|
+    of the logits and the largest |logit|."""
     from repro_torch.core import apply_masks
     from repro_torch.models import lm_forward
     got, _ = lm_forward(packed, batch, cfg)
@@ -188,9 +211,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"loss {first['total_loss']:.4f} -> {last['total_loss']:.4f}")
 
     if args.prune:
-        from repro_torch.sparse import pack_params, sparsity_summary
+        from repro_torch.sparse import sparsity_summary
 
-        params, masks, logs, structures, _ = prune(
+        params, masks, logs, _, _ = prune(
             trainer.state["params"], cfg, pipe, opt_cfg, lr=args.lr,
             target=args.prune_target)
         for log in logs:
@@ -198,7 +221,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"prune it={log.iteration} metric={log.metric:.4f} "
                   f"structs={log.structure_sparsity:.1%} "
                   f"mxu_red={red[0]:.2f}x hbm_red={red[1]:.2f}x")
-        packed = pack_params(params, masks, structures)
+        packed = pack_pruned(params, masks)
         summ = sparsity_summary(packed)
         err = packed_forward_error(packed, params, masks, pipe.batch_at(10_000), cfg)
         print(f"packed: {summ['nnz_blocks']}/{summ['total_blocks']} tiles live "

@@ -61,6 +61,7 @@ from repro_torch.distributed.sharding import (batch_placements, current_mesh,
                                               shard_map)
 from repro_torch.kernels.epilogue import Epilogue
 from .layers import expert_matmul, truncated_normal
+from .remat import saved_product
 
 __all__ = ["moe_init", "moe_apply", "moe_decode", "router_logits",
            "expert_row_counts"]
@@ -87,9 +88,13 @@ def moe_init(d_model: int, d_ff: int, num_experts: int, *, generator, device,
 
 def router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """fp32 logits (..., E) of x (..., d) against w (d, E): exact fp32
-    products summed over the contiguous last dim, one token at a time."""
+    products summed over the contiguous last dim, one token at a time.
+    Under ``remat="dots"`` the logits are kept, as the reference keeps
+    its router product's."""
     w_t = w.to(torch.float32).T.contiguous()                    # (E, d)
-    return (x.to(torch.float32)[..., None, :] * w_t).sum(dim=-1)
+    prod = x.to(torch.float32)[..., None, :] * w_t
+    with saved_product():
+        return prod.sum(dim=-1)
 
 
 def expert_row_counts(starts: torch.Tensor, n_slots: int,

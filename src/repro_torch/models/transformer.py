@@ -21,7 +21,8 @@ with a "model" axis and a rule set (``distributed.use_mesh`` /
 in the reference (:281-286, :494, :620-625).  ``lm_forward`` (:321) is
 the cache-free training/eval forward, differentiable, with each layer under
 ``torch.utils.checkpoint`` when ``cfg.remat`` is not "none" (the
-counterpart of ``_remat_wrap`` :297); ``cross_entropy_loss`` (:366) adds
+counterpart of ``_remat_wrap`` :297: "dots" selectively, keeping the
+outputs of the products without batch dims); ``cross_entropy_loss`` (:366) adds
 the z-loss.  ``lm_forward``, ``lm_prefill``
 (:514) and ``lm_decode`` (:434) run unchanged on packed (BSR) params;
 ``lm_generate`` (:727) is the decode loop as plain Python, greedy or
@@ -82,6 +83,7 @@ from .layers import (
 from .mamba import init_mamba_cache, mamba_apply, mamba_decode, mamba_init, mamba_prefill
 from .moe import moe_apply, moe_decode, moe_init
 from .moe_alltoall import alltoall_available, moe_alltoall_apply
+from .remat import remat_context
 from .xlstm import (
     init_mlstm_cache,
     init_slstm_cache,
@@ -336,17 +338,21 @@ def _in_context(fn, mesh, rules, *args):
 
 
 def _run_layer(lp, x, positions, enc_out, spec: LayerSpec, cfg: ModelConfig):
-    """``_apply_layer``, recomputed in the backward pass when
-    ``cfg.remat`` is not "none" (``torch.utils.checkpoint``,
-    non-reentrant).  The recomputation runs under the mesh and rules of
-    the forward: the backward of CUDA tensors runs on autograd's own
+    """``_apply_layer``, under ``cfg.remat``'s policy in the backward
+    pass (``remat.remat_context``; ``torch.utils.checkpoint``,
+    non-reentrant): "none" runs it plainly; "dots" keeps the fp32 outputs
+    of the products without batch dims (the projections and the router)
+    and recomputes the rest; "full" and any other name keep only the
+    layer's inputs.  The recomputation runs under the mesh and rules
+    of the forward: the backward of CUDA tensors runs on autograd's own
     thread, which does not see this thread's context, and would route
     the MoE otherwise."""
     layer = functools.partial(_apply_layer, spec=spec, cfg=cfg)
     if cfg.remat != "none" and torch.is_grad_enabled():
         return torch.utils.checkpoint.checkpoint(
             functools.partial(_in_context, layer, current_mesh(), current_rules()),
-            lp, x, positions, enc_out, use_reentrant=False)
+            lp, x, positions, enc_out, use_reentrant=False,
+            context_fn=remat_context(cfg.remat))
     return layer(lp, x, positions, enc_out)
 
 
@@ -392,7 +398,7 @@ def lm_forward(params: Dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     [, positions, patch_embeds, frames], with no cache.  Returns
     (logits, {"moe_aux": fp32 scalar summed over the layers}).  With
     ``cfg.remat`` other than "none" each layer's activations are
-    recomputed in the backward pass."""
+    recomputed in the backward pass (``_run_layer``)."""
     specs = _check_ported(cfg)
     x, positions = _embed(params, batch, cfg)
     x = logical_constraint(x, "batch", "seq", "embed")

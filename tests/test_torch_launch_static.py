@@ -1,15 +1,19 @@
-"""The port's fixed-batch launcher at prompt length 0 against the reference's.
+"""The port's fixed-batch launcher against the reference's, at prompt
+lengths 0 and 6.
 
 With no prompt, the reference (``src/repro/launch/serve.py:155-197``)
 skips the prefill and starts ``lm_generate`` from token 0, a stand-in
-BOS, at cache length 0; the port's ``_run_static`` does the same.  Both
-launchers run with ``--smoke --prompt-len 0 --gen 4`` on the CPU, the
+BOS, at cache length 0; with one, a single ``lm_prefill`` over the
+prompt gives the first token and ``lm_generate`` goes on from the
+prompt's length.  The port's ``_run_static`` does the same.  Both
+launchers run with ``--smoke --prompt-len P --gen 4`` on the CPU, the
 port on the reference's params bridged to torch (its ``build_params``
-replaced) and, for whisper-tiny, on the reference's frame embeddings
-(no prompt is drawn, so the launchers' prompt draws do not matter).  The
-printed greedy samples must be equal, the port must print its prefill
-time, and every row of the port's stream must equal the reference's
-``lm_generate`` from token 0 on the same params.
+replaced) and on the reference's inputs (its ``static_inputs``
+replaced: the prompt drawn from ``key_prompt`` and, for whisper-tiny,
+the frame embeddings from ``key_frames``, as the reference's launcher
+draws them).  The printed greedy samples must be equal, the port must
+print its prefill time, and every row of the port's stream must equal
+the reference's ``lm_generate`` after its prefill on the same params.
 """
 import sys
 
@@ -26,6 +30,7 @@ from repro.launch import serve as jserve
 from repro.models import init_caches as jinit_caches
 from repro.models import init_params as jinit_params
 from repro.models import lm_generate as jlm_generate
+from repro.models import lm_prefill as jlm_prefill
 from repro.models.transformer import encode_kv_caches as jencode_kv_caches
 from repro.models.transformer import encoder_forward as jencoder_forward
 from repro_torch.bridge import params_from_reference, tensor_from_reference
@@ -40,31 +45,35 @@ def _sample_line(out: str) -> str:
     return lines[0]
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "whisper-tiny"])
-def test_fixed_batch_at_prompt_length_zero_matches_reference(arch, monkeypatch,
-                                                             capsys):
-    argv = ["--arch", arch, "--smoke", "--prompt-len", "0", "--gen", str(GEN)]
+def _check_against_reference(arch, plen, monkeypatch, capsys):
+    argv = ["--arch", arch, "--smoke", "--prompt-len", str(plen), "--gen", str(GEN)]
     monkeypatch.setattr(sys, "argv", ["serve", *argv])
     assert jserve.main() == 0
     want_line = _sample_line(capsys.readouterr().out)
 
     jcfg = jmake_smoke(jget_config(arch))
-    key_params, _, key_frames, _ = jax.random.split(jax.random.PRNGKey(0), 4)
+    key_params, key_prompt, key_frames, _ = jax.random.split(jax.random.PRNGKey(0), 4)
     jparams = jinit_params(key_params, jcfg)
-    caches = jinit_caches(jcfg, BATCH, GEN, jnp.float32)
+    caches = jinit_caches(jcfg, BATCH, max(plen + GEN, 1), jnp.float32)
+    prompt = jax.random.randint(key_prompt, (BATCH, max(plen, 1)), 0, jcfg.vocab)
     frames = None
     if jcfg.enc_layers:
         frames = jax.random.normal(key_frames,
                                    (BATCH, jcfg.enc_frames, jcfg.d_model))
         caches = jencode_kv_caches(jparams, jencoder_forward(jparams, frames, jcfg),
                                    jcfg, caches)
-    want, _ = jlm_generate(jparams, caches, jnp.zeros((BATCH, 1), jnp.int32),
-                           jnp.asarray(0, jnp.int32), GEN, jcfg)
+    if plen > 0:
+        logits, caches = jlm_prefill(jparams, caches, {"tokens": prompt}, jcfg)
+        first = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+    else:
+        first = jnp.zeros((BATCH, 1), jnp.int32)
+    want, _ = jlm_generate(jparams, caches, first, jnp.asarray(plen, jnp.int32),
+                           GEN, jcfg)
 
     monkeypatch.setattr(serve, "build_params", lambda cfg, **kw: (
         params_from_reference(jparams, "cpu"), None))
     monkeypatch.setattr(serve, "static_inputs", lambda cfg, **kw: (
-        torch.zeros((BATCH, 0), dtype=torch.int64),
+        tensor_from_reference(prompt[:, :plen], "cpu").long(),
         None if frames is None else tensor_from_reference(frames, "cpu")))
     streams = []
     generate = tmodels.lm_generate
@@ -82,3 +91,14 @@ def test_fixed_batch_at_prompt_length_zero_matches_reference(arch, monkeypatch,
     assert len(streams) == 2                     # warm-up and the timed run
     for toks in streams:
         np.testing.assert_array_equal(toks.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "whisper-tiny"])
+def test_fixed_batch_at_prompt_length_zero_matches_reference(arch, monkeypatch,
+                                                             capsys):
+    _check_against_reference(arch, 0, monkeypatch, capsys)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "whisper-tiny"])
+def test_fixed_batch_after_a_prompt_matches_reference(arch, monkeypatch, capsys):
+    _check_against_reference(arch, 6, monkeypatch, capsys)

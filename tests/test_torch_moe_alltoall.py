@@ -225,13 +225,14 @@ def _mesh_ranks(rank, mesh_shape, x, trees, extra):
 
 def _remat_grads(cfg, params, toks):
     """Gradients of granite's loss under the installed mesh: without
-    remat on this thread, and with each layer recomputed in a backward
-    run on another thread, which does not see this thread's mesh and
-    rules (as autograd's device thread does not on the card)."""
+    remat on this thread, and with each layer recomputed ("full", and
+    "dots", which keeps the projections and the router's logits) in a
+    backward run on another thread, which does not see this thread's
+    mesh and rules (as autograd's device thread does not on the card)."""
     import threading
     from repro_torch.models import cross_entropy_loss
     grads = []
-    for remat, thread in (("none", False), ("full", True)):
+    for remat, thread in (("none", False), ("full", True), ("dots", True)):
         p = {**params, "layers": [
             {**lp, "moe": {**lp["moe"], "experts_up":
                            lp["moe"]["experts_up"].clone().requires_grad_()}}
@@ -401,10 +402,12 @@ def test_remat_backward_on_another_thread_routes_as_the_forward(runs):
     so the gradients equal the no-remat pass's (a recomputation through
     ``moe_apply`` would save other tensors and fail, or differ)."""
     for out in runs["ranks"][(1, 2)]:
-        plain, remat = out["remat"]
-        for a, b in zip(plain, remat):
-            assert b is not None and a.abs().max() > 0
-            torch.testing.assert_close(b, a, atol=1e-6, rtol=0)
+        plain, *remats = out["remat"]
+        assert len(remats) == 2
+        for remat in remats:
+            for a, b in zip(plain, remat):
+                assert b is not None and a.abs().max() > 0
+                torch.testing.assert_close(b, a, atol=1e-6, rtol=0)
 
 
 def test_granite_smoke_without_a_mesh_runs_moe_apply(runs):

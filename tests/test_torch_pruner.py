@@ -13,7 +13,9 @@ through ``lm_forward``: masks equal, ``resources_used`` within 1e-9,
 within 1e-4, the same rollback;
 ``unpack_params(pack_params(...))`` equal to the masked dense params;
 ``lm_forward`` on the packed result against the reference's.  The
-launcher's CPU smoke runs training and ``--prune`` end to end.
+train launcher's structures equal the reference launcher's (the
+embedding and the router pruned too), and its CPU smoke runs training
+and ``--prune`` end to end.
 """
 import jax
 import jax.numpy as jnp
@@ -286,6 +288,45 @@ def test_packed_lm_forward_matches_reference_and_masked_dense(arch):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(float(aux["moe_aux"]), float(jaux["moe_aux"]), atol=1e-5)
     np.testing.assert_allclose(got.numpy(), dense.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-1b-a400m"])
+def test_train_launcher_prunes_the_reference_launchers_structures(arch):
+    """``launch.train.prune_structures`` builds the structures the
+    reference's launcher builds (``build_structures(params,
+    BlockingSpec(128, 128), min_size=4096)``, the embedding and the
+    router included, though at smoke widths the router, 128 x 4, is
+    under the size floor): the same paths, shapes, tile grids and cost
+    vectors at both precisions.  ``pack_pruned`` packs only the
+    attention, MLP and expert weights; the masked embedding and router
+    stay dense, and its forward equals the masked dense one."""
+    jcfg, cfg, jparams, tparams = _model(arch)
+    js = jbuild_structures(jparams, JBlockingSpec(bk=128, bn=128), min_size=4096)
+    ts = train_launcher.prune_structures(tparams)
+    paths = [i.path for i in ts.infos]
+    assert paths == [i.path for i in js.infos]
+    assert "embed/embedding" in paths
+    for ji, ti in zip(js.infos, ts.infos):
+        assert tuple(ti.shape) == tuple(ji.shape), ti.path
+        assert (ti.planes, ti.grid_k, ti.grid_n) == (ji.planes, ji.grid_k, ji.grid_n)
+        for prec in ("fp32", "bf16"):
+            np.testing.assert_array_equal(
+                TPUResourceModel(precision=prec).layer_cost(ti),
+                JTPUResourceModel(precision=prec).layer_cost(ji), err_msg=ti.path)
+    assert ts.total_structures == js.total_structures
+
+    sel = (np.random.default_rng(4).uniform(size=ts.total_structures) < 0.5
+           ).astype(np.float32)
+    masks = masks_from_knapsack(tparams, ts, sel)
+    packed = train_launcher.pack_pruned(tparams, masks)
+    dense = apply_masks(tparams, masks)
+    assert isinstance(packed["embed"]["embedding"], torch.Tensor)
+    assert torch.equal(packed["embed"]["embedding"], dense["embed"]["embedding"])
+    assert not torch.equal(dense["embed"]["embedding"], tparams["embed"]["embedding"])
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in
+             JTokenTask(vocab=cfg.vocab, seed=6).batch(0, 2, 12).items()}
+    err = train_launcher.packed_forward_error(packed, tparams, masks, batch, cfg)
+    assert err["finite"] and err["max_abs_diff"] <= 1e-4 * err["max_abs_logit"], err
 
 
 def test_train_launcher_smoke_trains_and_prunes(tmp_path, capsys):

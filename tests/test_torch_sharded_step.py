@@ -7,9 +7,11 @@ One spawn of 4 CPU ranks (``run_ranks``) runs, on a (2, 2) ("data",
 "data"):
 
 * qwen1.5-0.5b smoke and granite-moe-1b-a400m smoke (through
-  ``moe_apply``): two fp32 train steps from bridged params; the losses
-  and the gathered params match the reference's jitted ``train_step``
-  on one device within 1e-5 relative.  AdamW runs in its linear regime
+  ``moe_apply``), and granite once more under ``remat="dots"`` on both
+  sides (the selective checkpoint over DTensor products and the
+  per-shard router): two fp32 train steps from bridged params; the
+  losses and the gathered params match the reference's jitted
+  ``train_step`` on one device within 1e-5 relative.  AdamW runs in its linear regime
   (eps 1, no weight decay, lr 1), so an update carries its gradient's
   precision: at eps 1e-8 Adam turns the fp32 rounding of a near-zero
   gradient into a step of +-lr in either package (the port's own
@@ -51,6 +53,7 @@ from repro_torch.bridge import params_from_reference
 from repro_torch.distributed import run_ranks
 
 ARCHS = ("qwen1.5-0.5b", "granite-moe-1b-a400m")
+TRAIN_CASES = ARCHS + ("granite-moe-1b-a400m/dots",)    # arch[/remat]
 B, S, STEPS, LR = 4, 16, 2, 1.0
 OPT = dict(use_master=False, eps=1.0, weight_decay=0.0)
 REL = 1e-5
@@ -59,9 +62,10 @@ TRAINER = dict(steps=4, batch=B, seq=S, lr=LR, seed=0, device="cpu",
 TRAINER_OPT = dict(OPT, grad_clip=1e9)
 
 
-def _cfg(arch):
+def _cfg(case):
     from repro_torch.configs import get_config, make_smoke
-    return make_smoke(get_config(arch))
+    arch, _, remat = case.partition("/")
+    return make_smoke(get_config(arch), remat=remat or "none")
 
 
 def _tokens(seed, shape, vocab):
@@ -95,9 +99,9 @@ def _sharded_ranks(rank, params, tmp):
     mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
     out = {}
     opt = AdamWConfig(**OPT)
-    for arch in ARCHS:
-        cfg = _cfg(arch)
-        state = init_train_state(params[arch], opt)
+    for case in TRAIN_CASES:
+        cfg = _cfg(case)
+        state = init_train_state(params[case.partition("/")[0]], opt)
         sspec = state_pspecs(state, mesh)
         dstate = distribute_tree(state, sspec, mesh)
         step = make_train_step(cfg, opt, constant_lr(LR))
@@ -111,9 +115,11 @@ def _sharded_ranks(rank, params, tmp):
                 losses.append(float(metrics["loss"].full_tensor()))
         same = all(tuple(a.placements) == tuple(b.placements) for a, b in zip(
             jax.tree.leaves(dstate), jax.tree.leaves(distribute_tree(state, sspec, mesh))))
-        out[arch] = {"losses": losses, "params": gather_tree(dstate["params"]),
+        out[case] = {"losses": losses, "params": gather_tree(dstate["params"]),
                      "placements_kept": same}
 
+    for arch in ARCHS:
+        cfg = _cfg(arch)
         # decode: two tokens from empty fp32 caches under the decode rules
         cell = ShapeCell("d", "decode", S, B)
         caches = init_caches(cfg, B, S, torch.float32, device="cpu")
@@ -169,6 +175,11 @@ def _sharded_ranks(rank, params, tmp):
         jax.tree.leaves(gather_tree(resumed.state))))
     out["trainer"] = {"losses": [row["loss"] for row in whole.metrics_log],
                       "params": gather_tree(whole.state["params"])}
+    dots, _, _ = build_trainer(_cfg(ARCHS[0] + "/dots"),
+                               ckpt_dir=os.path.join(tmp, "dots"), **kw)
+    dots.run()
+    out["trainer_dots"] = {"losses": [row["loss"] for row in dots.metrics_log],
+                           "params": gather_tree(dots.state["params"])}
     return out
 
 
@@ -185,10 +196,11 @@ def _plain_trainer(tmp):
     return init, [row["loss"] for row in plain.metrics_log], plain.state["params"]
 
 
-def _reference(arch):
+def _reference(case):
     """The reference's unsharded jitted train steps and decode on its
     smoke params: (params as numpy, losses, final params, decode logits)."""
-    cfg = jmake_smoke(jget_config(arch))
+    arch, _, remat = case.partition("/")
+    cfg = jmake_smoke(jget_config(arch), remat=remat or "none")
     params = jinit_params(jax.random.PRNGKey(0), cfg)
     opt = JAdamWConfig(**OPT)
     step = jax.jit(jmake_train_step(cfg, opt, jconstant_lr(LR)))
@@ -210,7 +222,7 @@ def _reference(arch):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded")
-    refs = {arch: _reference(arch) for arch in ARCHS}
+    refs = {case: _reference(case) for case in TRAIN_CASES}
     params = {arch: params_from_reference(refs[arch][0], device="cpu") for arch in ARCHS}
     ranks = run_ranks(_sharded_ranks, 4, backend="gloo", device_type="cpu",
                       init_file=tmp / "init", args=(params, str(tmp)))
@@ -223,7 +235,7 @@ def _rel(got, want):
     return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_CASES)
 def test_sharded_train_steps_match_the_reference(runs, arch):
     refs, ranks, _ = runs
     _, losses, jparams, _ = refs[arch]
@@ -273,4 +285,20 @@ def test_mesh_trainer_matches_the_plain_trainer(runs):
     start = jax.tree.leaves(init)
     assert len(got) == len(want) == len(start)
     for g, w, s in zip(got, want, start):
+        assert _rel((g - s).numpy(), (w - s).numpy()) <= REL
+
+
+def test_mesh_trainer_under_dots_matches_the_mesh_trainer(runs):
+    """The launcher's mesh trainer under ``remat="dots"`` (replicated
+    DTensor state, the selective checkpoint over its products) against
+    the same trainer without remat on the same ranks: the policy changes
+    what is kept, not the numbers."""
+    init = jax.tree.leaves(runs[2][0])
+    for r in runs[1]:
+        assert np.allclose(r["trainer_dots"]["losses"], r["trainer"]["losses"],
+                           rtol=REL, atol=0)
+    got = jax.tree.leaves(runs[1][0]["trainer_dots"]["params"])
+    want = jax.tree.leaves(runs[1][0]["trainer"]["params"])
+    assert len(got) == len(want) == len(init)
+    for g, w, s in zip(got, want, init):
         assert _rel((g - s).numpy(), (w - s).numpy()) <= REL

@@ -6,7 +6,7 @@ initialised in JAX and carried over with ``repro_torch.bridge``; both
 sides get the same numpy inputs.  Held: ``lm_forward`` logits within
 1e-4 and ``moe_aux`` within 1e-5 (with and without per-layer remat),
 ``cross_entropy_loss`` within 1e-6, gradients within 1e-4 of each
-leaf's largest entry, the prefill and decode steps' tokens equal, ``adamw_update`` fed the same numpy gradients
+leaf's largest entry (with remat "none", "dots" and "full"), the prefill and decode steps' tokens equal, ``adamw_update`` fed the same numpy gradients
 within 1e-6 (with and without masks and master weights), the schedules,
 the 5-step loss trajectory of ``make_train_step`` within 1e-4 (masked
 with microbatches, and with the group-lasso ``reg_fn``), and
@@ -131,7 +131,9 @@ def _qwen_masks(jparams):
 
 @pytest.mark.parametrize("arch,remat", [("qwen1.5-0.5b", "none"),
                                         ("qwen1.5-0.5b", "dots"),
-                                        ("granite-moe-1b-a400m", "none")])
+                                        ("granite-moe-1b-a400m", "none"),
+                                        ("qwen1.5-0.5b", "full"),
+                                        ("granite-moe-1b-a400m", "dots")])
 def test_lm_forward_matches_reference(arch, remat):
     jcfg, cfg, jparams, tparams = _model(arch)
     cfg = cfg.replace(remat=remat)
@@ -194,11 +196,22 @@ def _jloss(jcfg, aux_weight):
     return loss
 
 
-@pytest.mark.parametrize("arch,masked", [("qwen1.5-0.5b", False),
-                                         ("qwen1.5-0.5b", True),
-                                         ("granite-moe-1b-a400m", False)])
-def test_gradients_match_reference(arch, masked):
+@pytest.mark.parametrize("arch,masked,remat", [
+    pytest.param("qwen1.5-0.5b", False, "none", id="qwen1.5-0.5b-False"),
+    pytest.param("qwen1.5-0.5b", True, "none", id="qwen1.5-0.5b-True"),
+    pytest.param("granite-moe-1b-a400m", False, "none",
+                 id="granite-moe-1b-a400m-False"),
+    pytest.param("qwen1.5-0.5b", False, "dots", id="qwen1.5-0.5b-False-dots"),
+    pytest.param("qwen1.5-0.5b", True, "dots", id="qwen1.5-0.5b-True-dots"),
+    pytest.param("qwen1.5-0.5b", False, "full", id="qwen1.5-0.5b-False-full"),
+    pytest.param("granite-moe-1b-a400m", False, "dots",
+                 id="granite-moe-1b-a400m-False-dots"),
+])
+def test_gradients_match_reference(arch, masked, remat):
+    """Both packages under the same ``remat`` policy (the masked case is
+    the pruner's masked fine-tune)."""
     jcfg, cfg, jparams, tparams = _model(arch)
+    jcfg, cfg = jcfg.replace(remat=remat), cfg.replace(remat=remat)
     jmasks, tmasks = _qwen_masks(jparams) if masked else (None, None)
     jb, tb = _batch(cfg.vocab)
     jgrads = jax.jit(jax.grad(_jloss(jcfg, 0.01)))(jparams, jmasks, jb)
