@@ -60,28 +60,38 @@ Phases, any failure ends the run with a non-zero exit code:
    every kernel of the path must have run, and each BSR kernel exactly
    once per weight per forward pass (granite: 3 planes launches per MoE
    layer per decode tick and per prefill, so no loop over experts), and
-   paged decode once per layer per tick.  The decode chunks of runs (a)
-   and (b) are CUDA graphs (the engine's default on the card): a replay
-   counts the launches its capture recorded, so the counts stay exact;
+   paged decode once per layer per tick.  The decode chunks and the
+   admission prefills of runs (a) and (b) are CUDA graphs (the engine's
+   default on the card; a prefill graph per ``(L, start)``, gated to
+   equal the variants admitted): a replay counts the launches its
+   capture recorded, so the counts stay exact.  Run (a) is a fresh
+   engine's pass, so its wall includes every capture; its host split
+   (``HostSplit``: host ms per admission and per chunk outside the
+   chunk's call, the replays' device ms) and the chunk and prefill
+   capture seconds are reported apart;
    3b. on run (a)'s fp32 params: (c) qwen1.5-0.5b on run (a)'s traffic
    with every other request sampled (temperature 0.8, top-k 50, top-p
    0.9), alternating priority classes, a TTFT target on class 0 and the
    adaptive chunk policy (levels 1/2/4/8/16); (d) granite-moe-1b-a400m
    greedy at capacity factor 4.0; each served by an engine with eager
-   chunks and by one with CUDA graphs (a capturing pass, then a steady
-   one), gated on exact launch counts in every pass, graphed streams
-   equal to eager ones and to solo decode (sampled ones with the
-   engine's key), captures within 2 x the levels and none new in the
-   steady pass, at least one chunk shrink (c), and every replay under
-   ``torch.cuda.set_sync_debug_mode("error")``; (e) qwen1.5-0.5b,
+   steps and by one with CUDA graphs (a capturing pass; a second whose
+   prefix hits on the first's prompts capture new ``(L, start)``
+   prefills; a steady third), gated on exact launch counts in every
+   pass, graphed pass 1 streams equal to eager ones and passes 2 and 3
+   to solo decode (sampled ones with the engine's key), chunk captures
+   within 2 x the levels and none new in pass 2, nothing captured in
+   pass 3, every admitted ``(L, start)`` captured once and prefix hits at
+   ``start > 0`` in passes 2 and 3, at least one chunk shrink (c), and
+   every replay under ``torch.cuda.set_sync_debug_mode("error")``; (e) qwen1.5-0.5b,
    graphed, under the launcher's chaos plan (NaN poisoning, an
    allocation failure, index corruption, a chunk exception, a cancel, a
    deadline, queue-full rejects), gated on every request terminal with
    its planned fate, the streams without a fault equal to solo decode,
    each fault counted once, the engine degraded to 1-tick graphs and
    serving on, and the pool drained exactly.  Wall per tick, tok/s,
-   TTFT p50, the card's busy share (profiled pass) and the capture
-   seconds per variant are reported for eager and graphed;
+   TTFT p50, the card's busy share (profiled pass), each pass's host
+   split, the capture seconds per variant and the graph pool's bytes
+   are reported for eager and graphed (steady: graphed pass 3);
 4. one ``kernels`` JSON line with all five kernels: launches over the
    two runs (a) and phase 5 (rows of their own for the paper models'
    fc_1, launches over phase 6, for jamba's four kernels at its shapes,
@@ -164,8 +174,11 @@ Phases, any failure ends the run with a non-zero exit code:
    embedding is scaled by ``EMBED_SCALE`` (0.01) after init, so that
    greedy streams follow the layers' state (gated: at least half of each
    stream's tokens distinct).  Each is served by an eager engine and a
-   graphed one (capturing, steady and profiled passes), gated on exact
-   launch counts in every pass (jamba:
+   graphed one (capturing, steady and profiled passes; the admission
+   prefills graphs too, one per prompt length, whose recurrent rows land
+   in their slot on the device: gated to be captured once per length
+   admitted, nothing captured in the steady pass, admissions in every
+   slot), gated on exact launch counts in every pass (jamba:
    each BSR kernel once per packed weight per forward, planes once per
    packed expert weight per forward, paged decode once per attention
    layer per tick, paged prefill once per attention layer per
@@ -198,8 +211,15 @@ Phases, any failure ends the run with a non-zero exit code:
    other kernel; greedy streams of these random weights repeat a token
    (the decoder has no positional signal, as in the reference), so their
    distinct tokens are reported, not gated; then bf16 activations (full
-   length, finite logits) and ``python -m repro_torch.launch.serve
-   --arch whisper-tiny --pruned 0.75``.  (b) qwen2-vl-2b whole (28
+   length, finite logits), the launcher's graphed path
+   (``fixed_batch_run``: ``serve.FixedBatch`` at prompt lengths 0 and
+   16, greedy and sampled, the prefill and the whole ``lm_generate``
+   each one CUDA graph; gated: tokens equal the eager prefill +
+   generate's, one replay of each graph, launches equal the eager
+   call's; decode tok/s and, at 16 greedy, the busy share reported) and
+   ``python -m repro_torch.launch.serve --arch whisper-tiny --pruned
+   0.75``; (c) qwen1.5-0.5b's fixed batch the same way on phase 3's
+   fp32 params.  (b) qwen2-vl-2b whole (28
    layers, d_model 1536, 12/2 heads of 128, M-RoPE (16, 24, 24)), built
    in bf16 with the tied embedding scaled by ``EMBED_SCALE``: (i) an fp32
    copy prefills B 2 on contiguous caches, 1024 stub patch embeddings on
@@ -210,7 +230,9 @@ Phases, any failure ends the run with a non-zero exit code:
    with the embedding scaled: reported); (ii) phase 3's text-only
    traffic through ``ServingEngine``, every request sampled (temperature
    0.8, top-k 50, top-p 0.9, keys from the rids), eager and graphed,
-   prefix caching on with a hit in every pass, gated as phase 7's runs
+   prefix caching on with a hit in every pass (the graphed engine takes a
+   second capturing pass, for its prefix hits' new ``(L, start)``
+   prefills, before the steady one), gated as phase 7's runs
    are (exact launches: BSR 7 x 28 per forward, paged decode 28 per
    tick, paged prefill 28 per admission; graphed == eager; the
    distinct-token floor), fp32 also == solo decode, then bf16.  An
@@ -243,7 +265,9 @@ Phases, any failure ends the run with a non-zero exit code:
    4 requests through a graphed ``ServingEngine``, every stream equal
    to the same engine's with no mesh and to solo decode, a prefix-cache
    hit (the tail prefill also routes through the all-to-all), exact
-   launches and 3 all-to-alls per MoE layer per admission.  Reported:
+   launches, every admission a prefill graph (captured or replayed) and
+   3 all-to-alls per MoE layer in the warm-up and in the capture of each
+   prefill graph (the replays run theirs inside the graph).  Reported:
    ms per forward through the all-to-all and through ``moe_apply``, the
    all-to-all's share (a forward with each collective timed between
    synchronisations), the card's busy share, peak memory, tok/s with and
@@ -275,7 +299,8 @@ Phases, any failure ends the run with a non-zero exit code:
    the host-sync meter at full width: qwen1.5-0.5b, knapsack 0.75 at
    128x128, fp32, on the graphed engine (phase 3's params), phase 3's
    8 requests over 4 slots (shared prefix, every other one sampled), 4
-   ticks per sync: a warm-up stream then a steady one on each of two
+   ticks per sync: two warm-up streams (the second's prefix hits capture
+   new ``(L, start)`` prefills) then a steady one on each of two
    engines, the second engine's steady stream under
    ``analysis.runtime.no_host_sync(strict=True)`` (every Python pull
    hook patched and CUDA's sync-debug mode "error").  Gated: no
@@ -284,8 +309,9 @@ Phases, any failure ends the run with a non-zero exit code:
    equal to the chunks and ``admission`` regions to the admitted
    requests (the engine's counters and the process-wide ones);
    ``compile_caches`` and ``compile_events`` unchanged over the steady
-   stream; exact launch counts; every stream equal to the unmetered
-   engine's.  tok/s with and without the meter reported; (c) the two
+   stream; every admission a prefill graph replay; exact launch counts;
+   every stream equal to the unmetered engine's.  tok/s with and without
+   the meter reported; (c) the two
    remaining examples on the card: ``paper.serve_pruned`` (its own
    checks: packed == masked dense within 1e-6 at reconstruction, one
    decode step within atol 1e-3 / rtol 1e-4; ``bsr_matmul`` launched)
@@ -1263,14 +1289,13 @@ def traffic(vocab: int, seed: int):
 
 def serve_once(params, cfg, prompts, gen, dev, cuda_graphs=True):
     """Run (a)'s traffic through a fresh engine (4 ticks per sync); see
-    ``serve_pass``.  Returns (engine, requests by rid, seconds)."""
+    ``serve_pass``.  Returns (engine, the pass)."""
     import torch
     from repro_torch.serving import ServingEngine
     eng = ServingEngine(params, cfg, num_slots=4, page_size=8,
                         max_seq_len=max(len(p) for p in prompts) + gen,
                         ticks_per_sync=4, device=dev, cuda_graphs=cuda_graphs)
-    run = serve_pass(torch, eng, prompts, gen)
-    return eng, run["done"], run["seconds"]
+    return eng, serve_pass(torch, eng, prompts, gen)
 
 
 def device_busy(torch, run, wall_s):
@@ -1358,9 +1383,11 @@ def main_path(torch, dev, gpu_line, arch: str, cf_a=None):
     with Capture(torch, ops) as cap:
         serve_once(params, cfg_a, prompts, gen, dev, cuda_graphs=False)
     _build.reset_launch_counts()
-    eng, done, dt = serve_once(params, cfg_a, prompts, gen, dev)
+    eng, run_a = serve_once(params, cfg_a, prompts, gen, dev)
+    done, dt = run_a["done"], run_a["seconds"]
     launches = dict(_build.launch_counts)
     graphs_a = eng.analysis_stats()
+    prefill_gates(f"{arch} run (a)", eng, [run_a])
     emitted = sum(len(r.tokens) for r in done.values())
     ttft = sorted(eng.ttft_seconds(r) * 1e3 for r in done)
     st = eng.prefix_stats
@@ -1373,14 +1400,19 @@ def main_path(torch, dev, gpu_line, arch: str, cf_a=None):
                    decode_ticks=eng.decode_ticks, forward_passes=passes,
                    slot_utilization=eng.slot_utilization,
                    density=summ["density"], nnz_blocks=summ["nnz_blocks"],
-                   total_blocks=summ["total_blocks"], cuda_graphs=graphs_a)
+                   total_blocks=summ["total_blocks"], cuda_graphs=graphs_a,
+                   seconds_less_captures=run_a["seconds_less_captures"],
+                   split=run_a["split"], graph_pool_bytes=eng.graph_pool_bytes())
     log(f"  (a) fp32: {len(done)} requests, {emitted} tokens in {dt:.3f}s = "
         f"{emitted / dt:.1f} tok/s, TTFT p50 {stats_a['ttft_ms_p50']:.2f} ms "
         f"max {ttft[-1]:.2f} ms, {st['hit_requests']} prefix-hit requests "
         f"({st['pages_shared']} pages mapped), {eng.decode_ticks} decode "
         f"ticks + {len(done)} prefills, launches {launches}; CUDA graphs "
-        f"{graphs_a['variants']} (captured in this run), replays "
+        f"{graphs_a['variants']} and prefills {graphs_a['prefill_variants']} "
+        f"(captured in this run: its wall includes them, "
+        f"{run_a['seconds_less_captures']:.3f} s without), replays "
         f"{graphs_a['replays']}")
+    log(f"  (a) fp32: {split_line(run_a)}")
     log(f"  {arch} (a) on {gpu_line}: {emitted / dt:.1f} tok/s, TTFT p50 "
         f"{stats_a['ttft_ms_p50']:.2f} ms")
     if st["hit_requests"] < 1:
@@ -1429,7 +1461,8 @@ def main_path(torch, dev, gpu_line, arch: str, cf_a=None):
     params_b, _ = serve.build_params(base, seed=seed, device=dev, pruned=0.75,
                                      block=(128, 128), min_size=4096)
     serve_once(params_b, base, prompts, gen, dev)          # warm-up
-    eng_b, done_b, dt_b = serve_once(params_b, base, prompts, gen, dev)
+    eng_b, run_b = serve_once(params_b, base, prompts, gen, dev)
+    done_b, dt_b = run_b["done"], run_b["seconds"]
     emitted_b = sum(len(r.tokens) for r in done_b.values())
     agree = sum(first_a[rid] == int(r.tokens[0]) for rid, r in done_b.items())
     ttft_b = sorted(eng_b.ttft_seconds(r) * 1e3 for r in done_b)
@@ -1471,23 +1504,145 @@ def submit_traffic(eng, prompts, gen, *, sampled=False, adaptive=False):
         eng.submit(p, gen, arrival=base + 2 * i, **kw)
 
 
-def serve_pass(torch, eng, prompts, gen, **traffic_kw):
+def profiled_device_ms(torch, fn):
+    """``fn()`` under torch.profiler recording the card's activity only:
+    (its result, the summed device time of its kernels and copies in ms,
+    or None where the profiler recorded none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA) / 1e6
+    return out, (ms if ms > 0 else None)
+
+
+class HostSplit:
+    """Where a serving pass's host time goes, for any engine of the port:
+    the wall of ``ServingEngine.step``, ``_admit`` and ``_run_chunk``
+    (perf_counter), and CUDA events around every ``CUDAGraph.replay``
+    (its span on the card is its device time: one launch enqueues the
+    whole graph), attributed to the admission when it runs inside
+    ``_admit``.  With ``profile_prefill`` each eager admission prefill
+    (``engine._paged_prefill_step``) runs under torch.profiler, which
+    gives its device time (and slows its host).  The capture seconds a
+    pass spent (read from ``analysis_stats`` before and after) are taken
+    out of the walls they fell in.  Reported per pass by ``summary``."""
+
+    def __init__(self, torch, profile_prefill=False):
+        self.torch, self.profile_prefill = torch, profile_prefill
+        self.wall = {"step": 0.0, "_admit": 0.0, "_run_chunk": 0.0}
+        self.events = {"admission": [], "chunk": []}
+        self.profiled = []                  # device ms of eager prefills
+        self.in_admit = False
+
+    def __enter__(self):
+        torch = self.torch
+        from repro_torch.serving import engine as em
+        cls = em.ServingEngine
+        self.saved = [(cls, n, getattr(cls, n)) for n in self.wall]
+        self.saved.append((torch.cuda.CUDAGraph, "replay",
+                           torch.cuda.CUDAGraph.replay))
+        if self.profile_prefill:
+            self.saved.append((em, "_paged_prefill_step", em._paged_prefill_step))
+        split = self
+
+        def timed(name, fn):
+            admit = name == "_admit"
+
+            def wrapper(eng, *a, **kw):
+                t0 = time.perf_counter()
+                split.in_admit = split.in_admit or admit
+                try:
+                    return fn(eng, *a, **kw)
+                finally:
+                    if admit:
+                        split.in_admit = False
+                    split.wall[name] += time.perf_counter() - t0
+            return wrapper
+
+        for owner, name, fn in self.saved[:3]:
+            setattr(owner, name, timed(name, fn))
+        replay = torch.cuda.CUDAGraph.replay
+
+        def replay_timed(graph):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            replay(graph)
+            ev[1].record()
+            split.events["admission" if split.in_admit else "chunk"].append(ev)
+
+        torch.cuda.CUDAGraph.replay = replay_timed
+        if self.profile_prefill:
+            prefill = em._paged_prefill_step
+
+            def profiled(*a, **kw):
+                out, ms = profiled_device_ms(torch, lambda: prefill(*a, **kw))
+                split.profiled.append(ms)
+                return out
+
+            em._paged_prefill_step = profiled
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+        return False
+
+    def summary(self, admissions, chunks, captures):
+        """ms per admission and per chunk (host and device), after the
+        pass synchronised.  ``captures``: {"chunk": s, "prefill": s}
+        spent capturing in the pass."""
+        def mean_span(evs):
+            return (sum(a.elapsed_time(b) for a, b in evs) / len(evs)
+                    if evs else None)
+
+        w = {k: v * 1e3 for k, v in self.wall.items()}
+        cap = {k: v * 1e3 for k, v in captures.items()}
+        device = mean_span(self.events["admission"])
+        measured = [ms for ms in self.profiled if ms is not None]
+        if measured:
+            device = sum(measured) / len(measured)
+        return dict(
+            admissions=admissions, chunks=chunks, capture_s=dict(captures),
+            admit_host_ms=(w["_admit"] - cap["prefill"]) / max(admissions, 1),
+            chunk_call_ms=(w["_run_chunk"] - cap["chunk"]) / max(chunks, 1),
+            chunk_host_ms=(w["step"] - w["_admit"] - w["_run_chunk"])
+            / max(chunks, 1),
+            chunk_device_ms=mean_span(self.events["chunk"]),
+            prefill_replays=len(self.events["admission"]),
+            prefill_profiled=len(measured), prefill_device_ms=device)
+
+
+def capture_seconds(an):
+    """Seconds spent capturing so far: {"chunk": s, "prefill": s}."""
+    return {"chunk": sum(an.get("capture_seconds", {}).values()),
+            "prefill": sum(an.get("prefill_capture_seconds", {}).values())}
+
+
+def serve_pass(torch, eng, prompts, gen, profile_prefill=False, **traffic_kw):
     """One pass of the traffic through ``eng`` (which may have served
     passes before).  Launch counts are zeroed just before it and read
     just after.  Returns a dict: this pass's requests by rid, seconds,
-    decode ticks, admissions, launches, tok/s, TTFT p50 and wall ms per
-    tick."""
+    decode ticks, admissions, launches, tok/s, TTFT p50, wall ms per
+    tick, the prefill variants admitted (``(L, start)`` from each
+    request's prefix hit) and the host split (``HostSplit``; with
+    ``profile_prefill`` the eager prefills' device time)."""
     from repro_torch.kernels import _build
     from repro_torch.serving import RequestStatus
     first = eng._next_rid
     ticks0 = eng.decode_ticks
+    chunks0 = sum(eng.chunks_by_ticks.values())
+    caps0 = capture_seconds(eng.analysis_stats())
     submit_traffic(eng, prompts, gen, **traffic_kw)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with HostSplit(torch, profile_prefill) as split:
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
     mine = {rid: r for rid, r in done.items() if rid >= first}
     if len(mine) != len(prompts) or any(
@@ -1497,11 +1652,20 @@ def serve_pass(torch, eng, prompts, gen, **traffic_kw):
                              "logits) or ended short")
     ticks = eng.decode_ticks - ticks0
     emitted = sum(len(r.tokens) for r in mine.values())
+    caps1 = capture_seconds(eng.analysis_stats())
+    caps = {k: caps1[k] - caps0[k] for k in caps1}
+    ps = eng.pool.page_size
+    variants = sorted({(len(r.prompt) - r.prefix_hit_pages * ps,
+                        r.prefix_hit_pages * ps) for r in mine.values()})
     return dict(done=mine, seconds=dt, decode_ticks=ticks,
                 admissions=len(mine), launches=launches,
                 tok_per_s=emitted / dt, wall_ms_per_tick=dt / ticks * 1e3,
                 ttft_ms_p50=statistics.median(
-                    eng.ttft_seconds(r) * 1e3 for r in mine))
+                    eng.ttft_seconds(r) * 1e3 for r in mine),
+                prefill_variants=variants,
+                seconds_less_captures=dt - sum(caps.values()),
+                split=split.summary(len(mine), sum(eng.chunks_by_ticks.values())
+                                    - chunks0, caps))
 
 
 def gate_launches(arch, label, n_layers, run):
@@ -1531,18 +1695,62 @@ def public(run):
     return {k: v for k, v in run.items() if k != "done"}
 
 
+def captured(eng):
+    """(chunk, prefill) variants an engine has captured."""
+    an = eng.analysis_stats()
+    return an["captures"], an["prefill_captures"]
+
+
+def prefill_gates(label, eng, runs, before_last=None):
+    """The graphed prefill's gates over an engine's passes: every
+    admitted ``(L, start)`` captured once (``compile_caches`` equals the
+    distinct variants), the last pass captured nothing new, chunk or
+    prefill (with ``before_last``, ``captured`` before it), and each
+    pass after the first admitted prefix hits at ``start > 0``."""
+    an = eng.analysis_stats()
+    seen = {f"{n}@{st}" for run in runs for n, st in run["prefill_variants"]}
+    if set(an["prefill_variants"]) != seen or \
+            an["compile_caches"]["_paged_prefill_step"] != len(seen):
+        raise AssertionError(f"{label}: prefill graphs {an['prefill_variants']} "
+                             f"(cache {an['compile_caches']}) != the admitted "
+                             f"variants {sorted(seen)}")
+    if before_last is not None and captured(eng) != before_last:
+        raise AssertionError(f"{label}: the last pass captured: (chunk, "
+                             f"prefill) variants {before_last} -> {captured(eng)}")
+    for i, run in enumerate(runs[1:], start=2):
+        if not any(st > 0 for _, st in run["prefill_variants"]):
+            raise AssertionError(f"{label} pass {i}: no prefix hit at start > 0")
+
+
+def split_line(run):
+    """One pass's host split for the log."""
+    sp = run["split"]
+
+    def ms(v):
+        return f"{v:.2f}" if isinstance(v, float) else str(v)
+    return (f"admission host {ms(sp['admit_host_ms'])} ms (prefill device "
+            f"{ms(sp['prefill_device_ms'])} ms), chunk host outside the call "
+            f"{ms(sp['chunk_host_ms'])} ms + call {ms(sp['chunk_call_ms'])} ms "
+            f"(replay device {ms(sp['chunk_device_ms'])} ms), captures "
+            f"chunk {sp['capture_s']['chunk']:.3f} s prefill "
+            f"{sp['capture_s']['prefill']:.3f} s")
+
+
 def eager_vs_graphed(torch, dev, gpu_line, arch, params, cfg, prompts, gen, *,
                      sampled, adaptive):
-    """Serve the traffic through an engine with eager chunks and one with
+    """Serve the traffic through an engine with eager steps and one with
     CUDA graphs: eager one timed pass and one profiled; graphed a first
-    pass (captures), a second (steady state: nothing new captured) and
-    a profiled third.  Gated: exact launch counts in every pass (through
-    replays), the captures within the declared variants and none new in
-    the second pass, graphed pass 1 streams equal to the eager ones (same
-    rids, same keys), graphed pass 2 streams token-identical to their
-    solo decode (sampled ones with the engine's key) and its greedy
-    streams equal to pass 1's.  Replays run under sync-debug "error" in
-    the engine itself, so a hidden sync fails the run."""
+    pass (captures), a second (its prefix hits on pass 1's prompts capture
+    new ``(L, start)`` prefills), a third (steady: nothing new captured)
+    and a profiled fourth.  Gated: exact launch counts in every pass
+    (through replays), the chunk captures within the declared variants,
+    ``prefill_gates``, graphed pass 1 streams equal to the eager ones
+    (same rids, same keys), graphed passes 2 and 3 token-identical to
+    their solo decode (sampled ones with the engine's key; pass 3's
+    greedy streams through pass 2's) and their greedy streams equal to
+    pass 1's.  Replays run under sync-debug
+    "error" in the engine itself, so a hidden sync fails the run.  Each
+    pass reports its host split (``HostSplit``)."""
     from repro_torch.launch import serve
     from repro_torch.serving import AdaptiveChunkPolicy, ServingEngine
     kw = dict(sampled=sampled, adaptive=adaptive)
@@ -1558,7 +1766,9 @@ def eager_vs_graphed(torch, dev, gpu_line, arch, params, cfg, prompts, gen, *,
         mode = "graphed" if graphed else "eager"
         runs = [serve_pass(torch, eng, prompts, gen, **kw)]
         if graphed:
-            caps1 = eng.analysis_stats()["captures"]
+            caps1 = captured(eng)
+            runs.append(serve_pass(torch, eng, prompts, gen, **kw))
+            caps2 = captured(eng)
             runs.append(serve_pass(torch, eng, prompts, gen, **kw))
         an = eng.analysis_stats()
         steady = runs[-1]
@@ -1576,9 +1786,10 @@ def eager_vs_graphed(torch, dev, gpu_line, arch, params, cfg, prompts, gen, *,
             if an["captures"] > limit:
                 raise AssertionError(f"{arch}: {an['captures']} captured "
                                      f"variants > {limit}")
-            if an["captures"] != caps1:
+            if caps2[0] != caps1[0]:
                 raise AssertionError(f"{arch}: the second pass captured "
-                                     f"{an['captures'] - caps1} new variants")
+                                     f"{caps2[0] - caps1[0]} new chunk variants")
+            prefill_gates(f"{arch} graphed", eng, runs, caps2)
         passes[mode] = runs
         engines[mode] = eng
         out[mode] = dict(passes=[public(r) for r in runs], device=busy,
@@ -1587,7 +1798,13 @@ def eager_vs_graphed(torch, dev, gpu_line, arch, params, cfg, prompts, gen, *,
                          chunk_grows=slo["chunk_grows"],
                          variants=an["variants"],
                          capture_seconds=an.get("capture_seconds", {}),
-                         replays=an.get("replays", {}))
+                         replays=an.get("replays", {}),
+                         prefill_variants=an.get("prefill_variants", []),
+                         prefill_capture_seconds=an.get(
+                             "prefill_capture_seconds", {}),
+                         capture_split={k: an.get(k) for k in (
+                             "capture_split", "prefill_capture_split")},
+                         graph_pool_bytes=eng.graph_pool_bytes())
         share = busy["busy_share"]
         share = (f"busy {busy['device_busy_ms']:.1f} ms = {100 * share:.1f}% "
                  "of wall" if isinstance(share, float) else
@@ -1596,27 +1813,44 @@ def eager_vs_graphed(torch, dev, gpu_line, arch, params, cfg, prompts, gen, *,
             f"tick over {steady['decode_ticks']} ticks, {steady['tok_per_s']:.1f}"
             f" tok/s, TTFT p50 {steady['ttft_ms_p50']:.2f} ms, {share}; "
             f"chunks {slo['chunks_by_ticks']} ({slo['chunk_shrinks']} shrinks)"
-            + (f"; captures {an.get('capture_seconds')}" if graphed else ""))
-    g1, g2 = passes["graphed"][0]["done"], passes["graphed"][1]["done"]
-    same_streams(f"{arch} graphed pass 1 vs eager", g1,
+            + (f"; chunk captures {an.get('capture_seconds')}; "
+               f"{an['prefill_captures']} prefill captures "
+               f"({sum(an['prefill_capture_seconds'].values()):.2f} s, split "
+               f"{ {k: round(v, 3) for k, v in an['prefill_capture_split'].items()} }"
+               f"); graph pool {out[mode]['graph_pool_bytes']} bytes"
+               if graphed else ""))
+        for i, run in enumerate(runs):
+            log(f"    {mode} pass {i + 1}: {run['tok_per_s']:.1f} tok/s, "
+                f"{run['seconds']:.3f} s ({run['seconds_less_captures']:.3f} s "
+                f"less captures); {split_line(run)}")
+    g = passes["graphed"]
+    same_streams(f"{arch} graphed pass 1 vs eager", g[0]["done"],
                  passes["eager"][0]["done"])
-    greedy = {r: q for r, q in g1.items() if not (q.temperature or 0) > 0}
-    shift = min(g2) - min(g1)
-    same_streams(f"{arch} greedy streams, graphed pass 2 vs pass 1", greedy,
-                 {r: g2[r + shift] for r in greedy})
+    greedy = {r: q for r, q in g[0]["done"].items()
+              if not (q.temperature or 0) > 0}
     t2 = time.perf_counter()
-    bad = serve.verify_streams(params, cfg, g2, gen, device=dev,
-                               engine=engines["graphed"])
+    for i in (1, 2):
+        shift = min(g[i]["done"]) - min(g[0]["done"])
+        same_streams(f"{arch} greedy streams, graphed pass {i + 1} vs pass 1",
+                     greedy, {r: g[i]["done"][r + shift] for r in greedy})
+        # pass 2's streams against solo decode; pass 3's greedy ones equal
+        # pass 2's (both equal pass 1's), so its sampled ones (other rids,
+        # other keys) are the ones left to decode alone
+        check = {r: q for r, q in g[i]["done"].items()
+                 if i == 1 or r - shift not in greedy}
+        bad = serve.verify_streams(params, cfg, check, gen, device=dev,
+                                   engine=engines["graphed"])
+        if bad:
+            raise AssertionError(f"{arch} graphed pass {i + 1}: streams {bad} "
+                                 "differ from solo decode")
     secs["verify"] = time.perf_counter() - t2
-    if bad:
-        raise AssertionError(f"{arch} graphed pass 2: streams {bad} differ "
-                             "from solo decode")
-    n_s = len(g1) - len(greedy)
+    n_s = len(g[0]["done"]) - len(greedy)
     out["seconds"] = secs
-    log(f"  {arch}: graphed pass 1 streams == eager streams; graphed pass 2 "
-        f"streams token-identical to solo decode ({n_s} of {len(prompts)} "
-        f"sampled) and its greedy ones to pass 1's; exact launch counts "
-        f"through replays; seconds {secs}; on {gpu_line}")
+    log(f"  {arch}: graphed pass 1 streams == eager streams; graphed passes 2 "
+        f"and 3 streams token-identical to solo decode ({n_s} of "
+        f"{len(prompts)} sampled) and their greedy ones to pass 1's; exact "
+        f"launch counts through replays; pass 3 captured nothing; seconds "
+        f"{secs}; on {gpu_line}")
     return out
 
 
@@ -2386,13 +2620,16 @@ def gated_engine(dev, params, cfg, prompts, gen, slots, graphed, **sampling):
 def serve_gated(torch, dev, gpu_line, label, params, cfg, prompts, gen, *,
                 want, solo_slots=None, prefix=False, sampling=None):
     """Serve the traffic over 4 slots through an eager engine (one pass)
-    and a graphed one (a capturing pass, a steady pass, a profiled pass),
-    greedy or with the engine-level ``sampling`` (temperature, top-k,
-    top-p; each request's key from its rid).  Gated: prefix caching
-    reported off (``prefix``: on, with a hit in every pass), every stream
-    FINISHED at full length (``serve_pass``) with at least
-    ``MIN_DISTINCT_SHARE`` of its tokens distinct, every pass's launches
-    equal to ``want(run)``, the graphed first pass's streams equal to the
+    and a graphed one (a capturing pass, a steady pass, a profiled pass;
+    with ``prefix``, a second capturing pass first: its prefix hits on
+    the first pass's prompts are new ``(L, start)`` prefills), greedy or
+    with the engine-level ``sampling`` (temperature, top-k, top-p; each
+    request's key from its rid).  Gated: prefix caching reported off
+    (``prefix``: on, with a hit in every pass), every stream FINISHED at
+    full length (``serve_pass``) with at least ``MIN_DISTINCT_SHARE`` of
+    its tokens distinct, every pass's launches equal to ``want(run)``,
+    the graphed engine's admissions in every slot, its prefills
+    ``prefill_gates``, the graphed first pass's streams equal to the
     eager ones (same rids, so same keys) and, greedy, the steady pass's
     too.  With ``solo_slots`` a fresh graphed engine of that many slots
     serves the traffic once more, and its streams must equal their solo
@@ -2424,15 +2661,26 @@ def serve_gated(torch, dev, gpu_line, label, params, cfg, prompts, gen, *,
         if eng.prefix_stats["enabled"] != prefix:
             raise AssertionError(f"{label}: prefix caching is "
                                  f"{'off' if prefix else 'on'}")
-        runs = [gated(eng, f"{label} {mode} pass {i + 1}")
-                for i in range(2 if graphed else 1)]
+        n_passes = (3 if prefix else 2) if graphed else 1
+        runs = []
+        for i in range(n_passes):
+            before = captured(eng) if graphed else None
+            runs.append(gated(eng, f"{label} {mode} pass {i + 1}"))
         steady = runs[-1]
         busy = None
         if graphed:
+            prefill_gates(f"{label} graphed", eng, runs if prefix else runs[:1],
+                          before_last=before)
+            slots = eng.analysis_stats()["admissions_by_slot"]
+            if min(slots) < 1:
+                raise AssertionError(f"{label}: admissions by slot {slots}")
             busy = device_busy(torch, lambda: serve_pass(torch, eng, prompts, gen),
                                steady["seconds"])
             out["captures"] = {k: eng.analysis_stats().get(k) for k in
-                               ("variants", "capture_seconds", "replays")}
+                               ("variants", "capture_seconds", "replays",
+                                "prefill_variants", "prefill_capture_seconds",
+                                "admissions_by_slot")}
+            out["graph_pool_bytes"] = eng.graph_pool_bytes()
         done[mode] = [r["done"] for r in runs]
         distinct = sorted(len(set(r.tokens.tolist()))
                           for r in steady["done"].values())
@@ -2447,6 +2695,7 @@ def serve_gated(torch, dev, gpu_line, label, params, cfg, prompts, gen, *,
             f" tok/s, TTFT p50 {steady['ttft_ms_p50']:.2f} ms{share}; launches "
             f"{ {k: v for k, v in steady['launches'].items() if v} }; distinct "
             f"tokens per stream {distinct} of {gen}")
+        log(f"    {label} {mode} steady pass: {split_line(steady)}")
     eager = done["eager"][0]
     same_streams(f"{label} graphed pass 1 vs eager", done["graphed"][0], eager)
     graphed = done["graphed"][-1]
@@ -2631,6 +2880,75 @@ def greedy_decode(torch, params, caches, first, start, n, cfg):
     return torch.stack(out, dim=1)
 
 
+def fixed_batch_run(torch, dev, gpu_line, label, params, cfg):
+    """The fixed-batch launcher's path (``serve.FixedBatch``, B 4, 32
+    tokens, the launcher's key) at prompt lengths 0 and 16, greedy and
+    sampled (``SAMPLING``), through a graphed object: its first call
+    runs the prefill and the whole ``lm_generate`` eagerly (each on a
+    side stream, then captures it), its second call replays both graphs.
+    Gated: the second call's tokens equal the first's (the eager
+    ``lm_prefill`` + ``lm_generate``), each graph replayed once, and the
+    launches counted through the replays equal the eager run's; at
+    prompt length 16, greedy, also equal to an eager object's
+    (``cuda_graphs=False``).  Decode tok/s reported (the eager object's
+    beside it at 16 greedy, with the card's busy share over a third,
+    profiled graphed call)."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    b, gen = WHISPER_B, WHISPER_GEN
+    key = prng.split(prng.PRNGKey(0), 4)[3]
+    rep = {}
+    for plen, (mode, sampling) in itertools.product(
+            (0, WHISPER_PROMPT), (("greedy", {}), ("sampled", SAMPLING))):
+        prompt, frames = serve.static_inputs(cfg, batch=b, prompt_len=plen,
+                                             seed=0, device=dev)
+
+        def make(graphed):
+            return serve.FixedBatch(params, cfg, prompt, frames, gen, key=key,
+                                    device=dev, cuda_graphs=graphed, **sampling)
+
+        graphed = make(True)
+        _build.reset_launch_counts()
+        want, _, _ = graphed()                  # eager runs, then captures
+        e_launches = dict(_build.launch_counts)
+        _build.reset_launch_counts()
+        got, g_pre, g_dec = graphed()
+        g_launches = dict(_build.launch_counts)
+        name = f"{label} prompt {plen} {mode}"
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: graphed tokens != eager lm_prefill + "
+                                 "lm_generate")
+        replays = {k: v["replays"] for k, v in graphed.stats().items()}
+        if replays != ({"prefill": 1, "generate": 1} if plen else {"generate": 1}):
+            raise AssertionError(f"{name}: replays {replays}")
+        if g_launches != e_launches:
+            raise AssertionError(f"{name}: graphed launches {g_launches} != "
+                                 f"eager {e_launches}")
+        row = dict(prefill_ms=g_pre * 1e3, tok_per_s=b * gen / g_dec,
+                   graphs=graphed.stats())
+        if plen and not sampling:
+            eager, e_pre, e_dec = make(False)()
+            if not np.array_equal(eager, want):
+                raise AssertionError(f"{name}: the eager object's tokens differ")
+            row.update(eager_prefill_ms=e_pre * 1e3,
+                       eager_tok_per_s=b * gen / e_dec,
+                       device=device_busy(torch, graphed, g_pre + g_dec))
+        rep[f"prompt{plen}_{mode}"] = row
+        busy = row.get("device", {}).get("busy_share")
+        log(f"  {name}: graphed == eager tokens, one replay of each graph, "
+            f"launches {g_launches['bsr_matmul']} BSR as eager; decode "
+            f"{row['tok_per_s']:.1f} tok/s graphed, prefill "
+            f"{row['prefill_ms']:.2f} ms"
+            + (f" (eager object {row['eager_tok_per_s']:.1f} tok/s, prefill "
+               f"{row['eager_prefill_ms']:.2f} ms)" if "eager_tok_per_s" in row
+               else "")
+            + (f", card busy {100 * busy:.1f}%" if isinstance(busy, float)
+               else "") + f"; on {gpu_line}")
+    return rep
+
+
 def whisper_run(torch, dev, gpu_line):
     """Phase 8 (a): whisper-tiny at full width (fp32 params), knapsack
     0.75 at 128x128, packed; the launcher's fixed batch (B 4, prompt 16,
@@ -2756,6 +3074,8 @@ def whisper_run(torch, dev, gpu_line):
         f"decode vs forward {err_tf:.3g}; distinct tokens per stream {distinct} "
         f"of {gen} (reported); bf16: full length, finite, first tokens equal "
         f"to fp32 in {agree}/{b}; on {gpu_line}")
+    rep["fixed_batch"] = fixed_batch_run(torch, dev, gpu_line, "whisper-tiny",
+                                         params, base)
     t1 = time.perf_counter()
     if serve.main(["--arch", "whisper-tiny", "--pruned", "0.75"]) != 0:
         raise AssertionError("whisper: the launcher failed")
@@ -2883,14 +3203,25 @@ def vlm_run(torch, dev, gpu_line):
     return rep, launches, cap
 
 
-def family_path(torch, dev, gpu_line):
-    """Phase 8: (a) whisper-tiny, (b) qwen2-vl-2b.  Returns (report,
-    {path: launches of its counted run}, {path: captured inputs})."""
+def family_path(torch, dev, gpu_line, qwen=None):
+    """Phase 8: (a) whisper-tiny, (b) qwen2-vl-2b, (c) qwen1.5-0.5b's
+    fixed batch through ``fixed_batch_run`` (on ``qwen`` = phase 3's
+    (params, config, ...) when given).  Returns (report, {path: launches
+    of its counted run}, {path: captured inputs})."""
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     rep, launches, caps = {}, {}, {}
     rep["whisper"], launches[WHISPER_PATH], caps[WHISPER_PATH] = whisper_run(
         torch, dev, gpu_line)
+    if qwen is None:
+        from repro_torch.configs import get_config
+        from repro_torch.launch import serve
+        cfg = get_config("qwen1.5-0.5b").replace(param_dtype="float32",
+                                                 activ_dtype="float32")
+        qwen = (serve.build_params(cfg, seed=0, device=dev, pruned=0.75,
+                                   block=(128, 128), min_size=4096)[0], cfg)
+    rep["qwen_fixed_batch"] = fixed_batch_run(torch, dev, gpu_line,
+                                              "qwen1.5-0.5b", *qwen[:2])
     rep["qwen2_vl"], launches[VLM_PATH], caps[VLM_PATH] = vlm_run(torch, dev, gpu_line)
     rep["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rep["seconds"] = time.perf_counter() - t_phase
@@ -3266,13 +3597,24 @@ def a2a_path(torch, dev, gpu_line, spec=A2A):
     run = dict(launches=c["launches"], decode_ticks=c["decode_ticks"],
                admissions=c["admissions"])
     gate_launches(spec["arch"], "phase 9 (c)", n_layers, run)
-    if c["all_to_all_calls"] != 3 * a["moe_layers"] * c["admissions"]:
+    # each admission's prefill is a graph: its all-to-alls run in Python
+    # twice per captured (L, start) (the warm-up and the capture) and
+    # inside the replays of the rest
+    pre = c["graphs"]
+    captures = pre["prefill_captures"]
+    if captures + sum(pre["prefill_replays"].values()) != c["admissions"]:
+        raise AssertionError(f"phase 9 (c): {captures} prefill captures + "
+                             f"replays {pre['prefill_replays']} != "
+                             f"{c['admissions']} admissions")
+    if c["all_to_all_calls"] != 3 * a["moe_layers"] * 2 * captures:
         raise AssertionError(f"phase 9 (c): {c['all_to_all_calls']} all-to-alls,"
-                             f" not 3 per MoE layer per admission")
+                             f" not 3 per MoE layer per prefill warm-up and "
+                             f"capture ({captures} captured)")
     log(f"  (c) engine under the mesh and decode rules, {spec['requests']} "
         f"requests, graphed: streams == the no-mesh engine's == solo decode; "
         f"{c['prefix_hits']} prefix-hit requests; launches {c['launches']}; "
-        f"{c['all_to_all_calls']} all-to-alls (3 per MoE layer per admission, "
+        f"{c['all_to_all_calls']} all-to-alls in Python (3 per MoE layer in "
+        f"the warm-up and the capture of each of {captures} prefill graphs; "
         f"{c['admissions']} admissions); {c['tok_per_s']:.1f} tok/s vs "
         f"{c['tok_per_s_no_mesh']:.1f} without the mesh")
     secs = time.perf_counter() - t0
@@ -3733,8 +4075,11 @@ def metered_pass(torch, eng, prompts, gen):
 
 def meter_run(torch, dev, gpu_line, qwen=None) -> dict:
     """(b) full-width qwen on the graphed engine: an unmetered engine
-    (warm-up stream, steady stream) and a metered one (warm-up stream,
-    steady stream under the meter), the same rids and keys in both."""
+    (two warm-up streams, steady stream) and a metered one (two warm-up
+    streams, steady stream under the meter), the same rids and keys in
+    both.  Two warm-ups: the second stream's prefix hits on the first's
+    prompts capture new ``(L, start)`` prefills; the third captures
+    nothing, and every admission of it is a graph replay (gated)."""
     from repro_torch.serving import ServingEngine
     if qwen is None:
         from repro_torch.configs import get_config
@@ -3752,10 +4097,12 @@ def meter_run(torch, dev, gpu_line, qwen=None) -> dict:
                              ticks_per_sync=4, device=dev, cuda_graphs=True)
 
     plain = engine()
-    serve_pass(torch, plain, prompts, gen, sampled=True)        # captures
+    for _ in range(2):                                          # captures
+        serve_pass(torch, plain, prompts, gen, sampled=True)
     steady = serve_pass(torch, plain, prompts, gen, sampled=True)
     eng = engine()
-    serve_pass(torch, eng, prompts, gen, sampled=True)          # captures
+    for _ in range(2):                                          # captures
+        serve_pass(torch, eng, prompts, gen, sampled=True)
     before = eng.analysis_stats()
     run = metered_pass(torch, eng, prompts, gen)
     after = eng.analysis_stats()
@@ -3775,6 +4122,11 @@ def meter_run(torch, dev, gpu_line, qwen=None) -> dict:
     for key in ("compile_caches", "compile_events"):
         if after[key] != before[key]:
             failures.append(f"{key} {before[key]} -> {after[key]}")
+    prefill_replays = (sum(after["prefill_replays"].values())
+                       - sum(before["prefill_replays"].values()))
+    if prefill_replays != run["admissions"]:
+        failures.append(f"{prefill_replays} prefill replays for "
+                        f"{run['admissions']} admissions")
     if failures:
         raise AssertionError("phase 11 (b): " + "; ".join(failures))
     rep = dict(tok_per_s_unmetered=steady["tok_per_s"],
@@ -3784,12 +4136,14 @@ def meter_run(torch, dev, gpu_line, qwen=None) -> dict:
                decode_ticks=run["decode_ticks"], pulls=run["pulls"],
                regions=d_regions, compile_caches=after["compile_caches"],
                compile_events=after["compile_events"],
-               variants=after["variants"], launches=run["launches"])
+               variants=after["variants"], prefill_replays=prefill_replays,
+               launches=run["launches"])
     log(f"  (b) meter: {run['admissions']} requests, {run['chunks']} chunks "
         f"({run['decode_ticks']} ticks) under no_host_sync(strict=True) + "
         f"sync-debug 'error': 0 stray pulls; pulls by tag {run['pulls']}; "
         f"regions {d_regions}; compile caches {after['compile_caches']} and "
-        f"{after['compile_events']} compile events, unchanged; streams == "
+        f"{after['compile_events']} compile events, unchanged; "
+        f"{prefill_replays} admissions as prefill graph replays; streams == "
         f"unmetered; {run['tok_per_s']:.1f} tok/s metered vs "
         f"{steady['tok_per_s']:.1f} unmetered on {gpu_line}")
     return rep
@@ -4365,6 +4719,7 @@ def main() -> int:
     analysis_rep = analysis_path(torch, dev, gpu_line,
                                  paths["qwen1.5-0.5b"][4])
     log(f"  phase 11 done at {time.perf_counter() - t_start:.1f}s")
+    qwen_fixed = paths["qwen1.5-0.5b"][4][:2]     # for phase 8's fixed batch
     for p in paths.values():
         del p[4]
     torch.cuda.empty_cache()
@@ -4390,7 +4745,9 @@ def main() -> int:
         "(fixed batch, encoder + cross-attention) and qwen2-vl-2b (M-RoPE, "
         "1024 patch embeddings, then the paged engine), full width, knapsack "
         "0.75 at 128x128")
-    family_rep, family_launches, family_caps = family_path(torch, dev, gpu_line)
+    family_rep, family_launches, family_caps = family_path(torch, dev, gpu_line,
+                                                           qwen_fixed)
+    del qwen_fixed
     log(f"  phase 8 done at {time.perf_counter() - t_start:.1f}s")
 
     log("phase 9: the expert-parallel MoE through the all-to-all: "

@@ -15,7 +15,7 @@ Architecture
 and computes the set of functions reachable from the serving hot roots
 (``HOT_ROOTS``).  Its "jit registry" is the set of functions the port
 captures or runs as one device program: the function passed to a
-``ChunkGraphs(...)``, module functions called inside a ``torch.cuda.graph``
+``PackedGraphs(...)``, module functions called inside a ``torch.cuda.graph``
 body, and the hot roots; each records its static names (keyword-only
 parameters, parameters with a constant default, and the graph variant
 keys ``ticks``/``sampled``), as the reference records ``static_argnames``.
@@ -40,7 +40,8 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 # Functions whose bodies execute inside (or drive) the serving hot paths:
-# the reference's five plus the packed chunk the port's CUDA graphs
+# the reference's five (``_paged_prefill_step`` is the packed admission
+# prefill the port's CUDA graphs capture) plus the packed chunk they
 # capture.  The host-sync rule treats everything reachable from these as
 # hot.
 HOT_ROOTS: Tuple[str, ...] = (
@@ -52,10 +53,11 @@ HOT_ROOTS: Tuple[str, ...] = (
     "_decode_chunk_packed",
 )
 
-# `name = ChunkGraphs(fn, ...)` binds a callable `name(packed_in, ticks,
-# sampled)` whose `(ticks, sampled)` pick a captured variant; `fn` runs
-# under the capture with the same two variant keys.
-GRAPH_BUILDERS: Tuple[str, ...] = ("ChunkGraphs",)
+# `name = PackedGraphs(fn, ...)` binds a callable `name(packed_in, ticks,
+# sampled)` whose `(ticks, sampled)` pick a captured variant (the decode
+# chunk's; the admission prefill's `(L, start, guard)` go through
+# `name.run`); `fn` runs under the capture with the same variant keys.
+GRAPH_BUILDERS: Tuple[str, ...] = ("PackedGraphs",)
 GRAPH_CALL_PARAMS: Tuple[str, ...] = ("packed_in", "ticks", "sampled")
 VARIANT_KEYS: Tuple[str, ...] = ("ticks", "sampled")
 GRAPH_CONTEXTS: Tuple[str, ...] = ("torch.cuda.graph", "cuda.graph")
@@ -132,7 +134,7 @@ class ModuleInfo:
     suppressions: Dict[int, Set[str]] = field(default_factory=dict)
     functions: List[FunctionInfo] = field(default_factory=list)
     jits: List[JitInfo] = field(default_factory=list)
-    # (base name, line): functions handed to a ChunkGraphs(...)
+    # (base name, line): functions handed to a PackedGraphs(...)
     graph_fns: List[Tuple[str, int]] = field(default_factory=list)
     # (base name, line): calls inside `with torch.cuda.graph(...)` bodies
     graph_body_calls: List[Tuple[str, int]] = field(default_factory=list)
@@ -186,7 +188,7 @@ def bound_name(node: ast.AST) -> Optional[str]:
 
 
 def is_graph_builder(node: ast.AST) -> bool:
-    """True for a `ChunkGraphs(...)` call."""
+    """True for a `PackedGraphs(...)` call."""
     return isinstance(node, ast.Call) and call_base_name(node) in GRAPH_BUILDERS
 
 
@@ -293,8 +295,8 @@ class _ModuleScanner(ast.NodeVisitor):
 
     # -- capture bindings ------------------------------------------------
     def _graph_builders(self, value: ast.AST) -> List[ast.Call]:
-        """ChunkGraphs(...) calls bound by an assignment, including the
-        arms of `ChunkGraphs(...) if cond else None`."""
+        """PackedGraphs(...) calls bound by an assignment, including the
+        arms of `PackedGraphs(...) if cond else None`."""
         if isinstance(value, ast.IfExp):
             return self._graph_builders(value.body) + self._graph_builders(value.orelse)
         return [value] if is_graph_builder(value) else []

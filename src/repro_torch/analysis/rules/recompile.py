@@ -1,13 +1,14 @@
 """recompile-hazard rule: call patterns that capture or load again.
 
 In the port a "recompile" is a new CUDA-graph capture (one per engine per
-``(ticks, sampled)`` variant, ``serving/graphs.py``) or a kernel library
+decode-chunk ``(ticks, sampled)`` and per admission-prefill ``(L, start,
+guard)`` variant, ``serving/graphs.py``) or a kernel library
 (re)load (``kernels/_build.library``).  Four ways code silently pays one
 per call:
 
 * a ``torch.cuda.CUDAGraph()``, ``torch.cuda.graph(...)`` or
-  ``ChunkGraphs(...)`` built inside a loop, or a ``ChunkGraphs(...)``
-  invoked at once (``ChunkGraphs(fn, n, dev)(x, 4, False)``) — fresh
+  ``PackedGraphs(...)`` built inside a loop, or a ``PackedGraphs(...)``
+  invoked at once (``PackedGraphs(fn, n, dev)(x, 4, False)``) — fresh
   graphs, and a fresh capture, each time;
 * an unhashable literal (list/dict/set) or a fresh ``lambda`` passed as a
   variant key (``ticks``, ``sampled``) or a static keyword of a captured
@@ -100,7 +101,7 @@ def _loads_library(node: ast.Call) -> bool:
 class RecompileHazardRule(Rule):
     name = "recompile-hazard"
     doc = (
-        "CUDA graphs built in a loop or ChunkGraphs invoked at once, "
+        "CUDA graphs built in a loop or PackedGraphs invoked at once, "
         "unhashable or fresh-lambda variant keys and static keywords, "
         "static keywords reassigned per loop iteration, and kernel "
         "libraries loaded in a loop under a changing name."
@@ -126,15 +127,15 @@ class RecompileHazardRule(Rule):
         for node in ast.walk(fi.node):
             if not isinstance(node, ast.Call):
                 continue
-            # ChunkGraphs(...)(x): fresh graphs per call -> capture per call
+            # PackedGraphs(...)(x): fresh graphs per call -> capture per call
             if is_graph_builder(node.func):
-                yield finding(node, "`ChunkGraphs(...)` invoked immediately — fresh "
+                yield finding(node, "`PackedGraphs(...)` invoked immediately — fresh "
                               "graphs (and a capture) per call; bind it once instead")
                 continue
             # a graph (or a capture) constructed inside a loop
             if _builds_graph(node):
                 if in_loop(node):
-                    what = dotted_name(node.func) or "ChunkGraphs"
+                    what = dotted_name(node.func) or "PackedGraphs"
                     yield finding(node, f"`{what}(...)` constructed inside a loop — "
                                   "a new graph and capture every iteration")
                 continue

@@ -10,7 +10,7 @@ Three cooperating pieces:
   (``kernels/_build.library``); both call :func:`count_compile`, and
   :func:`compile_events` is the process-wide count.  ``CompileTracker``
   snapshots per-object cache sizes (``obj._cache_size()``: a
-  ``ChunkGraphs``'s captured variants) beside that counter.
+  ``PackedGraphs``'s captured variants) beside that counter.
 * **Sync regions** — ``sync_region(tag)`` declares an *intentional*
   blocking host round-trip (the engine wraps its one-per-chunk and
   one-per-admission transfers in one).  Regions are counted per tag.

@@ -10,7 +10,10 @@ runs the BSR kernel.  Without ``--stream`` a fixed batch is prefilled
 and decoded on contiguous caches, greedy or sampled (``--temperature``,
 ``--top-k``, ``--top-p``); for whisper-tiny, frame embeddings drawn from
 the seed go through the encoder first and fill the cross-attention K/V
-(the engine refuses encoder-decoder archs, as the reference's does).  With ``--stream`` ragged requests arrive
+(the engine refuses encoder-decoder archs, as the reference's does); on
+the card the prefill and the whole generation each run as one CUDA graph
+(``FixedBatch``), captured in the warm-up call and replayed in the timed
+one.  With ``--stream`` ragged requests arrive
 every ``--arrive-every`` ticks and flow through the continuous-batching
 engine (paged KV pool, paged prefill and decode kernels,
 ``--ticks-per-sync`` decode steps per host sync, each chunk a CUDA graph
@@ -44,8 +47,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["build_params", "stream_prompts", "static_inputs", "solo_decode",
-           "solo_decode_for",
+__all__ = ["build_params", "stream_prompts", "static_inputs", "FixedBatch",
+           "solo_decode", "solo_decode_for",
            "verify_streams", "chaos_plan", "serve_chaos", "check_chaos", "main"]
 
 
@@ -386,47 +389,123 @@ def static_inputs(cfg, *, batch: int, prompt_len: int, seed: int, device):
     return prompt, frames
 
 
+class FixedBatch:
+    """The fixed-batch launcher's two compiled calls — the counterpart of
+    the reference's jitted ``prefill`` (``lm_prefill`` and the argmax)
+    and ``generate`` (the whole ``lm_generate`` as one ``lax.scan``).
+
+    ``prompt`` (B, S) and, for an encoder-decoder arch, ``frames`` are
+    fixed; the sampling (``temperature``, ``top_k``, ``top_p``,
+    ``eos_id``) and the key are fixed per object.  The caches are
+    allocated once and reset in place at every call.  With
+    ``cuda_graphs`` (default: on a CUDA device) the first call captures
+    one CUDA graph of the prefill + argmax (per (B, S)) and one of the
+    whole ``lm_generate`` (per (B, start, gen)), as the reference warms
+    both calls, and later calls replay them; the start length and the
+    key are device tensors made before the captures.  Whisper's encoder
+    and cross K/V stay eager, as the reference does not jit them: they
+    are written into the caches in place, where the generate graph reads
+    them.  ``lm_generate`` itself stays the plain loop.  A call returns
+    (tokens (B, gen) on the host, prefill seconds, decode seconds)."""
+
+    def __init__(self, params, cfg, prompt, frames, gen: int, *, key,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, eos_id: Optional[int] = None,
+                 device, cuda_graphs: Optional[bool] = None):
+        from repro_torch.models import init_caches
+        self.device = torch.device(device)
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        if cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs needs a CUDA device, not {self.device}")
+        self.params, self.cfg, self.prompt, self.frames = params, cfg, prompt, frames
+        self.gen = gen
+        self.sampling = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                             eos_id=eos_id)
+        b, plen = prompt.shape
+        alloc = max(plen + gen, 1)
+        self.caches = init_caches(cfg, b, alloc, torch.float32, self.device)
+        self._fresh = init_caches(cfg, 1, alloc, torch.float32, self.device)
+        self.tok = torch.zeros((b, 1), dtype=torch.int32, device=self.device)
+        self.start = torch.full((b,), plen, dtype=torch.int64, device=self.device)
+        self.key = key.to(device=self.device, dtype=torch.int64)
+        self.pool = torch.cuda.graph_pool_handle() if cuda_graphs else None
+        self.graphs: Dict[str, object] = {}
+
+    @torch.no_grad()
+    def __call__(self) -> Tuple[np.ndarray, float, float]:
+        from repro_torch.models import encode_kv_caches, encoder_forward
+        for cache, fresh in zip(self.caches, self._fresh):
+            for k, t in cache.items():
+                t.copy_(fresh[k])
+        if self.frames is not None:      # whisper: encode once, cross K/V
+            enc = encoder_forward(self.params, self.frames, self.cfg)
+            cross = encode_kv_caches(self.params, enc, self.cfg,
+                                     [dict(c) for c in self.caches])
+            for cache, new in zip(self.caches, cross):
+                for k in ("cross_k", "cross_v"):
+                    if k in cache:
+                        cache[k].copy_(new[k])
+        _sync(self.device)
+        t0 = time.perf_counter()
+        if self.prompt.shape[1] > 0:
+            self._step("prefill", self._prefill)
+        else:
+            # empty prompt: generation starts from token 0 (a stand-in
+            # BOS) at cache length 0, as in the reference
+            self.tok.zero_()
+        _sync(self.device)
+        t1 = time.perf_counter()
+        toks = self._step("generate", self._generate).cpu().numpy()
+        return toks, t1 - t0, time.perf_counter() - t1
+
+    def _prefill(self) -> torch.Tensor:
+        from repro_torch.models import lm_prefill
+        logits, _ = lm_prefill(self.params, self.caches, {"tokens": self.prompt},
+                               self.cfg)
+        return self.tok.copy_(torch.argmax(logits[:, -1], -1)[:, None])
+
+    def _generate(self) -> torch.Tensor:
+        from repro_torch.models import lm_generate
+        toks, _ = lm_generate(self.params, self.caches, self.tok, self.start,
+                              self.gen, self.cfg, key=self.key, **self.sampling)
+        return toks
+
+    def _step(self, name: str, fn):
+        """``fn()`` eagerly, or its graph: captured at the first call
+        (whose eager run on a side stream is the result), then replayed."""
+        from repro_torch.serving.graphs import capture
+        if self.pool is None:
+            return fn()
+        graph = self.graphs.get(name)
+        if graph is None:
+            first, self.graphs[name] = capture(
+                fn, self.device, self.pool, f"fixed-batch {name}")
+            return first
+        return graph.replay()
+
+    def stats(self) -> Dict[str, object]:
+        """Each graph's capture seconds (warm-up run included), replays
+        and kernel launches per replay."""
+        return {name: dict(capture_seconds=g.capture_seconds, replays=g.replays,
+                           launches_per_replay=dict(g.launches))
+                for name, g in self.graphs.items()}
+
+
 def _run_static(args, cfg, params, device) -> int:
-    from repro_torch.models import (encode_kv_caches, encoder_forward,
-                                    init_caches, lm_generate, lm_prefill)
+    from repro_torch import prng
 
     b, plen = args.batch, args.prompt_len
     prompt, frames = static_inputs(cfg, batch=b, prompt_len=plen,
                                    seed=args.seed, device=device)
-
-    from repro_torch import prng
     # the reference draws its sampling key as the last of four splits
     key = prng.split(prng.PRNGKey(args.seed), 4)[3]
-
-    def once():
-        caches = init_caches(cfg, b, max(plen + args.gen, 1), torch.float32,
-                             device)
-        with torch.no_grad():
-            if frames is not None:       # whisper: encode once, cross K/V
-                enc = encoder_forward(params, frames, cfg)
-                caches = encode_kv_caches(params, enc, cfg, caches)
-            _sync(device)
-            t0 = time.perf_counter()
-            if plen > 0:
-                logits, caches = lm_prefill(params, caches, {"tokens": prompt},
-                                            cfg)
-                tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
-            else:
-                # empty prompt: generation starts from token 0 (a stand-in
-                # BOS) at cache length 0, as in the reference
-                tok = torch.zeros((b, 1), dtype=torch.int32, device=device)
-            _sync(device)
-            t1 = time.perf_counter()
-            toks, _ = lm_generate(params, caches, tok, plen, args.gen, cfg,
-                                  temperature=args.temperature,
-                                  top_k=args.top_k, top_p=args.top_p,
-                                  eos_id=args.eos_id, key=key)
-            out = toks.cpu().numpy()
-        return out, t1 - t0, time.perf_counter() - t1
-
-    once()                 # warm-up
+    run = FixedBatch(params, cfg, prompt, frames, args.gen, key=key,
+                     temperature=args.temperature, top_k=args.top_k,
+                     top_p=args.top_p, eos_id=args.eos_id, device=device)
+    run()                  # warm-up (on the card: captures both graphs)
     t0 = time.perf_counter()
-    gen, dt_pre, dt_dec = once()
+    gen, dt_pre, dt_dec = run()
     dt = max(time.perf_counter() - t0, 1e-9)
     print(f"generated {gen.shape} tokens on {device} in {dt:.3f}s (prefill "
           f"{dt_pre * 1e3:.1f}ms, decode "

@@ -349,8 +349,14 @@ def attention_decode(
     RoPE, nothing is written and positions ``< cache_len`` are
     attended; a page table is refused."""
     b = x.shape[0]
-    cache_len = torch.as_tensor(cache_len, device=x.device).reshape(-1)
-    cache_len = cache_len.expand(b).to(torch.int64)
+    if isinstance(cache_len, int):
+        # filled on the device: a host scalar copied over is a transfer,
+        # which a CUDA graph capture refuses
+        cache_len = torch.full((b,), cache_len, dtype=torch.int64,
+                               device=x.device)
+    else:
+        cache_len = torch.as_tensor(cache_len, device=x.device).reshape(-1)
+        cache_len = cache_len.expand(b).to(torch.int64)
     paged = page_table is not None
     if paged and window is not None:
         raise NotImplementedError(

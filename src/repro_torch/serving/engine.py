@@ -16,7 +16,9 @@ keeps them.  Each ``step`` is one scheduler event:
    recurrent state cannot be resumed from pages, so it is off otherwise)
    the prompt's longest page-aligned cached prefix is mapped instead of
    recomputed and only the tail is prefilled at its ``start_pos`` (the
-   match is capped one token short, so the tail is never empty).  A
+   match is capped one token short, so the tail is never empty).  On the
+   card the prefill is a CUDA graph captured once per ``(L, start,
+   guard)`` and replayed for every slot; on the CPU it runs eagerly.  A
    failed page allocation requeues the rest of the batch unchanged;
 3. **decode** — one chunk of ``ticks`` decode steps for all slots (the
    fixed ``ticks_per_sync``, or the adaptive policy's pick), with
@@ -50,11 +52,13 @@ positions at or past each row's restored ``cache_len``: nobody attends
 them and the retry overwrites them.  The port's caches are updated in
 place, so the reference's check that a donated cache buffer survived the
 failure has no counterpart here.  A CUDA graph that fails to capture or
-replay is not such a chunk failure: it raises out of ``step``.
+replay is not such a chunk failure, nor is one of an admission
+prefill: it raises out of ``step``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, List, Optional, Set
 
@@ -68,7 +72,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.transformer import (_check_ported, _select_token_rows,
                                             init_caches, lm_decode, lm_prefill)
 
-from .graphs import ChunkGraphs, GraphFailure
+from .graphs import GraphFailure, PackedGraphs, pool_reserved_bytes
 from .pages import NULL_PAGE, PagePool, PrefixIndex
 from .scheduler import Request, RequestStatus, Scheduler
 from .slo import AdaptiveChunkPolicy, ChunkSignals, percentiles
@@ -84,33 +88,44 @@ class _Slot:
 
 
 @torch.no_grad()
-def _paged_prefill_step(params, tokens, caches, table, slot, *, cfg,
-                        fresh_rows, start=0, guard=True):
-    """Paged prefill-on-join of a (1, L) prompt (tail) straight into the
-    pool pages named by ``table`` (1, max_pages).  A recurrent layer's
-    row ``slot`` is reset to ``fresh_rows`` (its initial state, one row)
-    and the prompt is prefilled into that row in place, so its final
-    state lands there (the reference prefills into a scratch row and
-    writes it to row ``slot``).  ``start > 0`` is the prefix-cache tail
-    at logical positions ``[start, start+L)``.  Returns (first token
-    (1,), all-finite flag) as device tensors."""
+def _paged_prefill_step(params, caches, packed, *, cfg, max_pages, fresh_rows,
+                        scratch_rows, start=0, guard=True):
+    """Paged prefill-on-join of one prompt (tail) straight into the pool
+    pages its page-table row names, over ONE packed int32 input: the
+    (1, L) tokens, the slot's (1, ``max_pages``) table row and the slot
+    index (L is the input's length less ``max_pages + 1``).  A recurrent
+    layer prefills into its one-row scratch cache in ``scratch_rows``,
+    reset from ``fresh_rows`` (the initial state) here, and the final
+    state is written to row ``slot`` of the pool with an ``index_copy_``
+    whose index is read on the device, so one graph serves every slot.
+    ``start > 0`` is the prefix-cache tail at logical positions
+    ``[start, start+L)``.  Static: ``(L, start, guard)``, the reference's
+    static arguments.  Returns ONE packed int32 block (2,): the first
+    token and the all-finite flag (1 without ``guard``)."""
+    n = packed.shape[0] - max_pages - 1
+    tokens = packed[:n].view(1, n)
+    table = packed[n:n + max_pages].view(1, max_pages)
+    slot = packed[n + max_pages:].long()
     pre = []
-    for cache, fresh in zip(caches, fresh_rows):
-        if fresh is None:                      # attention: the page pool
+    for cache, fresh, scratch in zip(caches, fresh_rows, scratch_rows):
+        if scratch is None:                    # attention: the page pool
             pre.append(cache)
             continue
-        row = {k: t[slot:slot + 1] for k, t in cache.items()}
-        for k, t in row.items():
+        for k, t in scratch.items():
             t.copy_(fresh[k])
-        pre.append(row)
+        pre.append(scratch)
     logits, _ = lm_prefill(params, pre,
                            {"tokens": tokens, "page_tables": table}, cfg,
                            start_pos=start)
+    for cache, scratch in zip(caches, scratch_rows):
+        if scratch is not None:
+            for k, t in cache.items():
+                t.index_copy_(0, slot, scratch[k])
     last = logits[:, -1]
     first = torch.argmax(last, dim=-1).to(torch.int32)
     ok = (torch.isfinite(last).all() if guard
           else torch.ones((), dtype=torch.bool, device=last.device))
-    return first, ok
+    return torch.cat([first, ok.to(torch.int32)[None]])
 
 
 @torch.no_grad()
@@ -167,6 +182,16 @@ def _decode_chunk(params, caches, tok, cache_len, tables, rngs, temperature,
     toks = torch.stack(emits)
     counts = torch.stack(lives).sum(dim=0, dtype=torch.int32)
     return toks, counts, bad, tok, cache_len, rngs
+
+
+def _chunk_label(variant) -> str:
+    ticks, sampled = variant
+    return f"{ticks}/{'sampled' if sampled else 'greedy'}"
+
+
+def _prefill_label(variant) -> str:
+    length, start, _ = variant
+    return f"{length}@{start}"
 
 
 # rows of the packed int32 chunk input, each (B,) but the (B, max_pages)
@@ -236,8 +261,9 @@ class ServingEngine:
         FaultInjector` consulted at the chunk-boundary hooks.
     device : the card by default; ``"cpu"`` runs the plain versions.
     cuda_graphs : run each decode chunk as a CUDA graph captured once per
-        ``(ticks, sampled)`` variant (default: on a CUDA device).  False
-        runs the chunk eagerly; the CPU always does.
+        ``(ticks, sampled)`` variant and each admission prefill as one
+        captured once per ``(L, start, guard)`` (default: on a CUDA
+        device).  False runs both eagerly; the CPU always does.
     """
 
     def __init__(
@@ -323,17 +349,20 @@ class ServingEngine:
         self._step_progress = False   # terminal/retry event this step
 
         # attention layers: page pools; recurrent layers: one row per slot
-        # (their state is O(1) per sequence), and the initial row that an
-        # admission resets a slot's row to
+        # (their state is O(1) per sequence), the initial row an admission
+        # starts from and the one-row scratch cache it prefills into
         shape = (num_pages, page_size, cfg.kv_heads, cfg.head_dim_())
         rows = init_caches(cfg, num_slots, 1, torch.float32, self.device)
-        fresh = init_caches(cfg, 1, 1, torch.float32, self.device)
         self.caches = [
             {"k": torch.zeros(shape, dtype=torch.float32, device=self.device),
              "v": torch.zeros(shape, dtype=torch.float32, device=self.device)}
             if attn else row for attn, row in zip(self._attn, rows)]
-        self._fresh_rows = [None if attn else row
-                            for attn, row in zip(self._attn, fresh)]
+
+        def one_row():
+            return [None if attn else row for attn, row in zip(
+                self._attn, init_caches(cfg, 1, 1, torch.float32, self.device))]
+
+        self._fresh_rows, self._scratch_rows = one_row(), one_row()
 
         # host-mirrored per-slot state, pushed to the device every chunk
         self._tok = np.zeros((num_slots, 1), np.int32)
@@ -353,9 +382,20 @@ class ServingEngine:
         self.due_time: Dict[int, float] = {}
         # declared host round-trips: one per chunk, one per admission
         self.sync_regions: Dict[str, int] = {"admission": 0, "decode_chunk": 0}
+        self.admissions_by_slot = [0] * num_slots
+        # one graph memory pool for the chunks and the prefills
+        self._graph_pool = torch.cuda.graph_pool_handle() if cuda_graphs else None
         n_in = num_slots * sum(_in_widths(self.max_pages).values())
-        self.graphs = (ChunkGraphs(self._chunk_fn, n_in, self.device)
+        self.graphs = (PackedGraphs(self._chunk_fn, n_in, self.device,
+                                    region="decode_chunk", label=_chunk_label,
+                                    pool=self._graph_pool)
                        if cuda_graphs else None)
+        n_prefill = self.max_pages * page_size + self.max_pages + 1
+        self.prefill_graphs = (PackedGraphs(self._prefill_fn, n_prefill,
+                                            self.device, region="admission",
+                                            label=_prefill_label,
+                                            pool=self._graph_pool)
+                               if cuda_graphs else None)
 
     # -- request intake ----------------------------------------------------
 
@@ -481,18 +521,29 @@ class ServingEngine:
             pages = hits + fresh
             self._tables[slot] = NULL_PAGE
             self._tables[slot, :total] = pages
+            # the prefill: one packed upload (tail tokens, the slot's table
+            # row, the slot) and ONE declared host round-trip (first token,
+            # guard flag and the request's decode key, folded on the host);
+            # on the card a graph replay of its (L, start, guard) variant
             start = n_hit * self.pool.page_size
-            first, ok = _paged_prefill_step(
-                self.params, self._upload(req.prompt[start:][None]),
-                self.caches, self._upload(self._tables[slot][None]), slot,
-                cfg=self.cfg, fresh_rows=self._fresh_rows, start=start,
-                guard=self.nan_guard)
-            # ONE declared host round-trip per admission: first token,
-            # guard flag and the request's decode key (folded on the host)
-            with analysis_runtime.sync_region("admission"):
-                self.sync_regions["admission"] += 1
-                first_ok = torch.stack([first[0], ok.to(torch.int32)]).cpu().numpy()
-                key = self.request_key(req.rid).numpy().astype(np.uint32)
+            tail = req.prompt[start:]
+            packed = np.concatenate([tail, self._tables[slot],
+                                     np.asarray([slot], np.int32)])
+            if self.prefill_graphs is not None:
+                first_ok, key = self.prefill_graphs.run(
+                    packed, (tail.size, start, self.nan_guard),
+                    within=functools.partial(self._key_words, req.rid))
+            else:
+                out = _paged_prefill_step(
+                    self.params, self.caches, self._upload(packed),
+                    cfg=self.cfg, max_pages=self.max_pages,
+                    fresh_rows=self._fresh_rows,
+                    scratch_rows=self._scratch_rows, start=start,
+                    guard=self.nan_guard)
+                with analysis_runtime.sync_region("admission"):
+                    first_ok, key = out.cpu().numpy(), self._key_words(req.rid)
+            self.sync_regions["admission"] += 1
+            self.admissions_by_slot[slot] += 1
             if self.nan_guard and not bool(first_ok[1]):
                 self.guard_trips += 1
                 self.failed += 1
@@ -527,6 +578,17 @@ class ServingEngine:
             count += 1
             self._maybe_finish(slot)
         return count
+
+    def _prefill_fn(self, packed: torch.Tensor, length: int, start: int,
+                    guard: bool) -> torch.Tensor:
+        return _paged_prefill_step(
+            self.params, self.caches, packed, cfg=self.cfg,
+            max_pages=self.max_pages, fresh_rows=self._fresh_rows,
+            scratch_rows=self._scratch_rows, start=start, guard=guard)
+
+    def _key_words(self, rid: int) -> np.ndarray:
+        """Request ``rid``'s key as two uint32 words on the host."""
+        return self.request_key(rid).numpy().astype(np.uint32)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device.  On the card it goes
@@ -895,27 +957,42 @@ class ServingEngine:
 
     def analysis_stats(self) -> Dict[str, object]:
         """Runtime counters behind "nothing new is captured in steady
-        state, one declared transfer per chunk", under the reference's
-        names: the compile caches of the two hot-path entry points (the
-        captured ``(ticks, sampled)`` variants of ``_decode_chunk``; -1
-        for an eager chunk and for ``_paged_prefill_step``, which always
-        runs eagerly), the process-wide count of graph captures and kernel
-        library loads, and the declared host sync regions (one
-        ``decode_chunk`` per chunk, one ``admission`` per admitted
-        request); beside them whether chunks run as CUDA graphs and each
-        variant's capture seconds, replays and launches per replay."""
-        graphs = (self.graphs.stats() if self.graphs is not None
-                  else {"captures": 0, "variants": []})
+        state, one declared transfer per chunk and per admission", under
+        the reference's names: the compile caches of the two hot-path
+        entry points (the captured ``(ticks, sampled)`` variants of
+        ``_decode_chunk`` and ``(L, start, guard)`` variants of
+        ``_paged_prefill_step``; -1 for each when it runs eagerly), the
+        process-wide count of graph captures and kernel library loads,
+        and the declared host sync regions (one ``decode_chunk`` per
+        chunk, one ``admission`` per admitted request); beside them
+        whether the steps run as CUDA graphs, each chunk variant's
+        capture seconds, replays and launches per replay, the same for
+        the prefill variants (``"<L>@<start>"``) under ``prefill_``
+        names, the admissions per slot and the bytes the graphs' memory
+        pool holds (None where not measured)."""
+        empty = {"captures": 0, "variants": []}
+        graphs = self.graphs.stats() if self.graphs is not None else empty
+        prefill = (self.prefill_graphs.stats()
+                   if self.prefill_graphs is not None else empty)
         return {
             "compile_caches": {
                 "_decode_chunk": analysis_runtime.cache_size(self.graphs),
                 "_paged_prefill_step": analysis_runtime.cache_size(
-                    _paged_prefill_step),
+                    self.prefill_graphs),
             },
             "compile_events": analysis_runtime.compile_events(),
             "sync_regions": dict(self.sync_regions),
             "cuda_graphs": int(self.graphs is not None), **graphs,
+            **{f"prefill_{k}": v for k, v in prefill.items()},
+            "admissions_by_slot": list(self.admissions_by_slot),
         }
+
+    def graph_pool_bytes(self) -> Optional[int]:
+        """Bytes reserved in the graphs' shared memory pool (None on the
+        CPU, or where the allocator's snapshot does not name pools)."""
+        if self._graph_pool is None:
+            return None
+        return pool_reserved_bytes(self._graph_pool, self.device)
 
     def release_prefix_cache(self) -> int:
         """Drop every cached prefix block; pages still mapped by active

@@ -183,12 +183,12 @@ def test_host_sync_in_hot_function_reachable_from_hot_root(tmp_path):
 LOOP = """
     import numpy as np
     import torch
-    from repro_torch.serving.graphs import ChunkGraphs
+    from repro_torch.serving.graphs import PackedGraphs
 
     def fwd(packed, ticks, sampled):
         return packed * 2
 
-    graphs = ChunkGraphs(fwd, 8, torch.device("cuda"))
+    graphs = PackedGraphs(fwd, 8, torch.device("cuda"))
 
     def drive(xs, cfg, n):
         out = []
@@ -268,24 +268,24 @@ def test_host_sync_region_in_captured_function_still_flagged(tmp_path):
     a bug: the capture cannot hold a pull."""
     findings, _ = _scan(tmp_path, """
         from repro_torch.analysis.runtime import sync_region
-        from repro_torch.serving.graphs import ChunkGraphs
+        from repro_torch.serving.graphs import PackedGraphs
 
         def chunk(packed, ticks, sampled):
             with sync_region("chunk"):
                 return packed.item()
 
-        graphs = ChunkGraphs(chunk, 8, "cuda")
+        graphs = PackedGraphs(chunk, 8, "cuda")
         """, enabled="host-sync")
     assert len(findings) == 0      # chunk is captured but not hot...
     findings, _ = _scan(tmp_path, """
         from repro_torch.analysis.runtime import sync_region
-        from repro_torch.serving.graphs import ChunkGraphs
+        from repro_torch.serving.graphs import PackedGraphs
 
         def _decode_chunk(packed, *, ticks):
             with sync_region("chunk"):
                 return packed.item()
 
-        graphs = ChunkGraphs(_decode_chunk, 8, "cuda")
+        graphs = PackedGraphs(_decode_chunk, 8, "cuda")
         """, enabled="host-sync")
     assert len(findings) == 1      # ...a hot root that is captured is
 
@@ -376,15 +376,15 @@ def test_prng_clean_patterns_stay_silent(tmp_path):
 def test_recompile_graph_in_loop_and_immediate(tmp_path):
     findings, _ = _scan(tmp_path, """
         import torch
-        from repro_torch.serving.graphs import ChunkGraphs
+        from repro_torch.serving.graphs import PackedGraphs
 
         def bench(xs, fn):
             for x in xs:
                 g = torch.cuda.CUDAGraph()          # flagged: graph in loop
                 with torch.cuda.graph(g):           # flagged: capture in loop
                     fn(x)
-                graphs = ChunkGraphs(fn, 8, "cuda") # flagged: ChunkGraphs in loop
-            return ChunkGraphs(fn, 8, "cuda")(xs[0], 4, False)   # flagged: immediate
+                graphs = PackedGraphs(fn, 8, "cuda") # flagged: PackedGraphs in loop
+            return PackedGraphs(fn, 8, "cuda")(xs[0], 4, False)   # flagged: immediate
         """, enabled="recompile-hazard")
     msgs = sorted(f.message for f in findings)
     assert len(findings) == 4, msgs
@@ -414,13 +414,13 @@ def test_recompile_static_arg_hazards(tmp_path):
 def test_recompile_stable_static_calls_stay_silent(tmp_path):
     findings, _ = _scan(tmp_path, """
         from repro_torch.kernels import _build
-        from repro_torch.serving.graphs import ChunkGraphs
+        from repro_torch.serving.graphs import PackedGraphs
 
         def chunk(tok, ticks, sampled):
             return tok * ticks
 
         def drive(tok, n):
-            graphs = ChunkGraphs(chunk, 8, "cuda")   # bound outside any loop
+            graphs = PackedGraphs(chunk, 8, "cuda")   # bound outside any loop
             for _ in range(n):
                 tok = graphs(tok, 4, False)          # constant variant: one capture
                 _build.library("bsr_matmul")         # one name: one load
@@ -433,13 +433,13 @@ def test_recompile_naive_adaptive_loop_antipattern(tmp_path):
     """A serving loop that feeds an unbounded load signal straight into
     the ``ticks`` variant key captures one graph per distinct level."""
     findings, _ = _scan(tmp_path, """
-        from repro_torch.serving.graphs import ChunkGraphs
+        from repro_torch.serving.graphs import PackedGraphs
 
         def chunk(tok, ticks, sampled):
             return tok * ticks
 
         def serve(engine, tok):
-            graphs = ChunkGraphs(chunk, 8, "cuda")
+            graphs = PackedGraphs(chunk, 8, "cuda")
             while engine.pending:
                 ticks = engine.queue_depth        # unbounded load signal
                 tok = graphs(tok, ticks, False)
@@ -466,9 +466,10 @@ def test_recompile_library_loaded_under_a_changing_name(tmp_path):
 
 def test_recompile_sweep_clean_over_adaptive_serving_path():
     """The port's serving package carries no recompile hazard but the
-    baselined per-prefix-hit ``start`` of the eager admission prefill:
-    the adaptive policy's frozen levels, not a loop-varying value, feed
-    the graphs' ``ticks``."""
+    baselined per-prefix-hit ``start`` of the admission prefill (one
+    captured variant per ``(L, start)`` on the card, as the reference's
+    jit compiles one program per start): the adaptive policy's frozen
+    levels, not a loop-varying value, feed the graphs' ``ticks``."""
     serving = REPO_ROOT / "src" / "repro_torch" / "serving"
     index = lint.build_index(REPO_ROOT, [serving])
     findings, _ = lint.run_rules(index, all_rules(), enabled={"recompile-hazard"})

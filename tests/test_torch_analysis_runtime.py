@@ -29,7 +29,7 @@ def _one_torch_thread():
 
 
 class _VariantCache:
-    """A stand-in for ``ChunkGraphs``: the first call of a variant
+    """A stand-in for ``PackedGraphs``: the first call of a variant
     "captures" it (and counts the capture), later calls replay."""
 
     def __init__(self):
@@ -269,12 +269,13 @@ def test_stray_pull_in_the_engine_raises_in_both_packages(monkeypatch):
 
 @pytest.mark.cuda
 def test_chunk_graphs_capture_counted_and_replays_metered():
-    """On the card: a real ``ChunkGraphs`` capture counts one compile
+    """On the card: a real ``PackedGraphs`` capture counts one compile
     event and one cached variant; its replays pass the strict meter (the
     transfer is declared) and capture nothing new."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: CUDA graphs run only on the card")
-    from repro_torch.serving.graphs import ChunkGraphs
+    from repro_torch.serving.engine import _chunk_label
+    from repro_torch.serving.graphs import PackedGraphs
 
     dev = torch.device("cuda")
     state = torch.zeros(4, dtype=torch.int32, device=dev)
@@ -282,7 +283,7 @@ def test_chunk_graphs_capture_counted_and_replays_metered():
     def fn(packed, ticks, sampled):
         return packed * ticks + state
 
-    graphs = ChunkGraphs(fn, 4, dev)
+    graphs = PackedGraphs(fn, 4, dev, region="decode_chunk", label=_chunk_label)
     tracker = art.CompileTracker(chunk=graphs)
     before = tracker.snapshot()
     first = graphs(np.arange(4, dtype=np.int32), 2, False)

@@ -480,13 +480,14 @@ def test_graphs_capture_nothing_new_in_steady_state(card):
 def test_replays_run_without_a_host_sync(card):
     """A replay runs under sync-debug "error": a hidden sync would raise
     (GraphFailure); one that does not is what the engine counts on."""
-    from repro_torch.serving import ChunkGraphs, GraphFailure
+    from repro_torch.serving import GraphFailure, PackedGraphs
+    from repro_torch.serving.engine import _chunk_label
     x = torch.zeros(4, device=card)
 
     def fn(packed, ticks, sampled):
         return packed + ticks
 
-    g = ChunkGraphs(fn, 8, card)
+    g = PackedGraphs(fn, 8, card, region="decode_chunk", label=_chunk_label)
     assert (g(np.arange(8, dtype=np.int32), 3, False) == np.arange(8) + 3).all()
     assert (g(np.arange(8, dtype=np.int32), 3, False) == np.arange(8) + 3).all()
     assert g.stats()["replays"] == {"3/greedy": 1}
@@ -495,7 +496,8 @@ def test_replays_run_without_a_host_sync(card):
         return packed + int(x.sum())        # a host read inside the chunk
 
     with pytest.raises(GraphFailure):
-        ChunkGraphs(syncing, 8, card)(np.zeros(8, np.int32), 1, False)
+        PackedGraphs(syncing, 8, card, region="decode_chunk",
+                     label=_chunk_label)(np.zeros(8, np.int32), 1, False)
 
 
 def _smoke_training(device, steps=2):
@@ -710,7 +712,8 @@ def test_capture_survives_a_dead_engine_graph_in_a_cycle(card):
     old owner mid-capture and allocates with the collector set to run on
     nearly every allocation."""
     import gc
-    from repro_torch.serving import ChunkGraphs
+    from repro_torch.serving import PackedGraphs
+    from repro_torch.serving.engine import _chunk_label
     victims = []
 
     def fn(packed, ticks, sampled):
@@ -724,14 +727,15 @@ def test_capture_survives_a_dead_engine_graph_in_a_cycle(card):
 
     old = Owner()
     old.me = old
-    old.graphs = ChunkGraphs(fn, 8, card)
+    old.graphs = PackedGraphs(fn, 8, card, region="decode_chunk",
+                              label=_chunk_label)
     assert (old.graphs(np.arange(8, dtype=np.int32), 1, False) == np.arange(8) + 1).all()
     victims.append(old)
     del old
     thresholds = gc.get_threshold()
     gc.set_threshold(1, 1, 1)
     try:
-        g = ChunkGraphs(fn, 8, card)
+        g = PackedGraphs(fn, 8, card, region="decode_chunk", label=_chunk_label)
         for _ in range(2):
             assert (g(np.arange(8, dtype=np.int32), 2, False) == np.arange(8) + 2).all()
     finally:

@@ -102,3 +102,58 @@ def test_fixed_batch_at_prompt_length_zero_matches_reference(arch, monkeypatch,
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "whisper-tiny"])
 def test_fixed_batch_after_a_prompt_matches_reference(arch, monkeypatch, capsys):
     _check_against_reference(arch, 6, monkeypatch, capsys)
+
+
+def _fixed_batch(arch, plen, sampling, device, cuda_graphs=None):
+    """The launcher's ``FixedBatch`` on smoke params from a seed, with
+    its own inputs and key (B 4, 4 tokens)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config, make_smoke
+    cfg = make_smoke(get_config(arch))
+    params, _ = serve.build_params(cfg, seed=0, device=device)
+    prompt, frames = serve.static_inputs(cfg, batch=BATCH, prompt_len=plen,
+                                         seed=0, device=device)
+    key = prng.split(prng.PRNGKey(0), 4)[3]
+    return serve.FixedBatch(params, cfg, prompt, frames, GEN, key=key,
+                            device=device, cuda_graphs=cuda_graphs, **sampling)
+
+
+SAMPLINGS = {"greedy": {}, "sampled": dict(temperature=0.8, top_k=5, top_p=0.9)}
+
+
+@pytest.mark.parametrize("sampling", sorted(SAMPLINGS))
+@pytest.mark.parametrize("plen", [0, 6])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "whisper-tiny"])
+def test_fixed_batch_resets_its_static_caches(arch, plen, sampling):
+    """The caches are allocated once and reset in place: a second call
+    gives the first call's tokens, greedy and sampled (one fixed key)."""
+    run = _fixed_batch(arch, plen, SAMPLINGS[sampling], "cpu")
+    caches = [dict(c) for c in run.caches]
+    first, _, _ = run()
+    second, _, _ = run()
+    assert first.shape == (BATCH, GEN)
+    np.testing.assert_array_equal(first, second)
+    assert all(c[k] is t for c, cc in zip(run.caches, caches) for k, t in cc.items())
+    with pytest.raises(ValueError, match="CUDA device"):
+        _fixed_batch(arch, plen, {}, "cpu", cuda_graphs=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", sorted(SAMPLINGS))
+@pytest.mark.parametrize("plen", [0, 6])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "whisper-tiny"])
+def test_graphed_fixed_batch_equals_eager(arch, plen, sampling):
+    """On the card: the graphed prefill and ``lm_generate`` (captured in
+    the first call, replayed in the second) give the eager path's tokens,
+    greedy and sampled."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA graphs run only on the card")
+    card = torch.device("cuda")
+    want, _, _ = _fixed_batch(arch, plen, SAMPLINGS[sampling], card,
+                              cuda_graphs=False)()
+    run = _fixed_batch(arch, plen, SAMPLINGS[sampling], card)
+    for _ in range(2):
+        got, _, _ = run()
+        np.testing.assert_array_equal(got, want)
+    assert {k: v["replays"] for k, v in run.stats().items()} == (
+        {"prefill": 1, "generate": 1} if plen else {"generate": 1})
