@@ -1955,8 +1955,8 @@ def counted(segments, name, fn):
 
 def training_busy(torch, step_fn, state, pipe, steps=(10, 11)):
     """Wall ms per step and the card's busy share over two more training
-    steps run on a copy of the trained state (the step is functional:
-    the trainer's state is not advanced)."""
+    steps run from the trained state (the step is functional: the
+    trainer's state is not advanced)."""
     def run():
         st = state
         for s in steps:
@@ -1973,21 +1973,75 @@ def training_busy(torch, step_fn, state, pipe, steps=(10, 11)):
     return busy
 
 
-def remat_compare(torch, cfg, state, pipe, opt_cfg, gpu_line):
+def graph_copies(torch, step, state, batch, reps=3):
+    """What a graphed train step's functional contract costs on the card:
+    the input state and batch copied into the static tensors and the
+    result cloned out, as a replay does them, without the replay: the
+    device time of ``reps`` such calls summed by the profiler
+    (``device_busy``; a timer behind a spin kernel cannot hold them, as
+    the clone's allocations wait for the card), per call, beside the
+    bytes they move (each byte read once and written once, twice) and
+    the least time for them at ``HBM_BYTES_PER_S``."""
+    from repro_torch.core.masks import copy_tree_, tree_leaves
+    v = next(iter(step.variants.values()))
+
+    def copies():
+        for _ in range(reps):
+            copy_tree_(v.state, state)
+            copy_tree_(v.batch, batch)
+            step._result(v.state, state)
+        torch.cuda.synchronize()
+
+    copies()                                        # warm
+    t0 = time.perf_counter()
+    copies()
+    busy = device_busy(torch, copies, time.perf_counter() - t0)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    moved = 4 * nbytes
+    ms = busy.get("device_busy_ms")
+    return dict(device_ms=ms / reps if ms is not None else "not measured",
+                top=busy.get("top", [])[:3], state_bytes=nbytes,
+                bytes_moved=moved, bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+
+
+def graph_line(stats, pool, copies=None) -> str:
+    """One log line's worth of a graphed step's captures, pool and copies."""
+    split = ", ".join(f"{k} {v:.2f}s" for k, v in stats["capture_split"].items())
+    line = (f"{stats['captures']} capture(s) of {[round(x, 2) for x in stats['capture_seconds']]}s "
+            f"({split}), replays {stats['replays']}, launches per replay "
+            f"{stats['launches_per_replay']}; graph pool "
+            + (f"{pool / 2**30:.3f} GiB" if isinstance(pool, int) else "not measured"))
+    if copies is not None:
+        ms = copies["device_ms"]
+        line += (f"; copies in and out "
+                 + (f"{ms:.2f} ms" if isinstance(ms, float) else ms)
+                 + f" of device time a step ({copies['bytes_moved'] / 2**30:.2f} GiB "
+                 f"moved, bound {copies['bound_ms']:.2f} ms; "
+                 + ", ".join(f"{r['calls']} x {r['name'][:40]}" for r in copies["top"])
+                 + ")")
+    return line
+
+
+def remat_compare(torch, dev, cfg, state, pipe, opt_cfg, gpu_line):
     """Phase 5's remat sub-step: ``REMAT_STEPS`` train steps under "full"
     (only each layer's inputs kept) and under "dots" (the projections'
     fp32 outputs kept too) from the same trained state on the same
-    batches, the losses gated within ``REMAT_LOSS_TOL`` relative.  For
-    each: ms per step, the card's busy share over the steps run again
+    batches, each eagerly (``make_train_step``, twice: the second run is
+    eager against eager, the card's own spread) and graphed
+    (``GraphedTrainStep``: the first run's step 0 captures, the second
+    run replays), each graphed loss gated within ``REMAT_LOSS_TOL``
+    relative of the eager one, and "dots" against "full" likewise.  For
+    each: ms per step, the card's busy share over the second run again
     under the profiler, and ``torch.cuda.max_memory_allocated`` from a
-    reset just before (the trained state, held throughout, included);
-    then one forward and backward of the loss on the trained params
-    alone: the bytes still allocated after the forward (what the
-    backward keeps) and the peak, both above what was allocated before."""
+    reset just before the first (the trained state, held throughout,
+    included); then one forward and backward of the loss on the trained
+    params alone: the bytes still allocated after the forward (what the
+    backward keeps) and the peak, both above what was allocated before.
+    Each graph is dropped before the next is built."""
     from repro_torch.core.masks import map_tree
     from repro_torch.models import cross_entropy_loss, lm_forward
     from repro_torch.optim import warmup_cosine
-    from repro_torch.train import make_train_step
+    from repro_torch.train import GraphedTrainStep, make_train_body, make_train_step
     sched = warmup_cosine(TRAIN["lr"], TRAIN["steps"] // 10 + 1, TRAIN["steps"])
     out = {}
 
@@ -2005,55 +2059,87 @@ def remat_compare(torch, cfg, state, pipe, opt_cfg, gpu_line):
         torch.cuda.synchronize()
         return kept, torch.cuda.max_memory_allocated() - base
 
+    def run(step):
+        st, losses, ms = state, [], []
+        for s in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st, pipe.batch_at(30_000 + s))
+            losses.append(float(m["total_loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
     for remat in ("full", "dots"):
         c = cfg.replace(remat=remat)
-        step = make_train_step(c, opt_cfg, sched)
-
-        def run():
-            st, losses, ms = state, [], []
-            for s in range(REMAT_STEPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                st, m = step(st, pipe.batch_at(30_000 + s))
-                losses.append(float(m["total_loss"]))
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-            return losses, ms
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        losses, ms = run()
-        peak = torch.cuda.max_memory_allocated()
-        busy = device_busy(torch, run, sum(ms) / 1e3)
+        row = {}
+        for mode in ("eager", "graphed"):
+            step = (make_train_step(c, opt_cfg, sched) if mode == "eager" else
+                    GraphedTrainStep(make_train_body(c, opt_cfg, sched), dev,
+                                     what=f"train step ({remat})"))
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms = run(step)
+            peak = torch.cuda.max_memory_allocated()
+            again, ms2 = run(step)
+            busy = device_busy(torch, lambda: run(step), sum(ms2) / 1e3)
+            r = dict(losses=losses, losses_again=again, ms=ms, ms_again=ms2,
+                     ms_per_step_median=statistics.median(ms2), peak_bytes=peak,
+                     peak_above_state=peak - base,
+                     device={k: v for k, v in busy.items() if k != "top"})
+            if mode == "graphed":
+                r["graph"] = dict(stats=step.stats(), pool_bytes=step.pool_bytes())
+            row[mode] = r
+            del step
+            torch.cuda.empty_cache()
         kept, fb_peak = forward_backward(c)
-        out[remat] = dict(losses=losses, ms=ms, ms_per_step_median=statistics.median(ms),
-                          peak_bytes=peak, peak_above_state=peak - base,
-                          after_forward_bytes=kept, forward_backward_peak_bytes=fb_peak,
-                          device={k: v for k, v in busy.items() if k != "top"})
-    errs = [abs(a - b) / abs(b) for a, b in zip(out["dots"]["losses"],
-                                                out["full"]["losses"])]
+        row.update(after_forward_bytes=kept, forward_backward_peak_bytes=fb_peak)
+        e, g = row["eager"], row["graphed"]
+        row["graphed_vs_eager"] = rel(g["losses"] + g["losses_again"],
+                                      e["losses"] + e["losses"])
+        row["eager_vs_eager"] = rel(e["losses_again"], e["losses"])
+        if max(row["graphed_vs_eager"]) > REMAT_LOSS_TOL:
+            raise AssertionError(f"phase 5 remat {remat!r}: graphed losses "
+                                 f"{g['losses']} {g['losses_again']} vs eager "
+                                 f"{e['losses']} (relative {row['graphed_vs_eager']})")
+        out[remat] = row
+    errs = rel(out["dots"]["eager"]["losses"], out["full"]["eager"]["losses"])
+    errs_graphed = rel(out["dots"]["graphed"]["losses"], out["full"]["graphed"]["losses"])
     out["loss_rel_err"] = errs
-    if max(errs) > REMAT_LOSS_TOL:
-        raise AssertionError(f"phase 5 remat: dots losses {out['dots']['losses']} "
-                             f"vs full {out['full']['losses']} (relative {errs})")
+    out["loss_rel_err_graphed"] = errs_graphed
+    if max(errs + errs_graphed) > REMAT_LOSS_TOL:
+        raise AssertionError(f"phase 5 remat: dots vs full losses, eager {errs}, "
+                             f"graphed {errs_graphed} (relative)")
     for remat in ("full", "dots"):
-        r = out[remat]
-        share = r["device"]["busy_share"]
-        log(f"  remat {remat!r}: {REMAT_STEPS} steps from the trained state, "
-            f"losses {[round(x, 6) for x in r['losses']]}; ms per step "
-            f"{[round(x, 1) for x in r['ms']]} (median {r['ms_per_step_median']:.1f}); "
-            f"card busy "
-            + (f"{100 * share:.1f}% ({r['device']['device_busy_ms'] / REMAT_STEPS:.1f} "
-               f"ms of device time a step)" if isinstance(share, float) else
-               f"not measured ({r['device'].get('error')})")
-            + f"; torch.cuda.max_memory_allocated {r['peak_bytes'] / 2**30:.3f} GiB "
-            f"({r['peak_above_state'] / 2**30:.3f} GiB above the held state); "
-            f"one forward + backward of the loss: {r['after_forward_bytes'] / 2**30:.3f} "
-            f"GiB held after the forward, peak {r['forward_backward_peak_bytes'] / 2**30:.3f} "
-            f"GiB; on {gpu_line}")
-    log(f"  remat: dots vs full losses within {max(errs):.2e} relative (gate "
-        f"{REMAT_LOSS_TOL}); step peak dots - full "
-        f"{(out['dots']['peak_bytes'] - out['full']['peak_bytes']) / 2**30:+.3f} GiB; "
+        row = out[remat]
+        for mode in ("eager", "graphed"):
+            r = row[mode]
+            share = r["device"]["busy_share"]
+            log(f"  remat {remat!r} {mode}: {REMAT_STEPS} steps from the trained "
+                f"state, losses {[round(x, 6) for x in r['losses']]}; ms per step "
+                f"{[round(x, 1) for x in r['ms']]}, again "
+                f"{[round(x, 1) for x in r['ms_again']]} (median {r['ms_per_step_median']:.1f}); "
+                f"card busy "
+                + (f"{100 * share:.1f}% ({r['device']['device_busy_ms'] / REMAT_STEPS:.1f} "
+                   f"ms of device time a step)" if isinstance(share, float) else
+                   f"not measured ({r['device'].get('error')})")
+                + f"; torch.cuda.max_memory_allocated {r['peak_bytes'] / 2**30:.3f} GiB "
+                f"({r['peak_above_state'] / 2**30:.3f} GiB above the held state); on "
+                f"{gpu_line}")
+        log(f"  remat {remat!r} graphed: " + graph_line(row["graphed"]["graph"]["stats"],
+                                                        row["graphed"]["graph"]["pool_bytes"]))
+        log(f"  remat {remat!r}: graphed vs eager losses within "
+            f"{max(row['graphed_vs_eager']):.2e} relative (gate {REMAT_LOSS_TOL}), "
+            f"eager vs eager {max(row['eager_vs_eager']):.2e}; one forward + backward "
+            f"of the loss: {row['after_forward_bytes'] / 2**30:.3f} GiB held after the "
+            f"forward, peak {row['forward_backward_peak_bytes'] / 2**30:.3f} GiB")
+    log(f"  remat: dots vs full losses within {max(errs):.2e} relative eager, "
+        f"{max(errs_graphed):.2e} graphed (gate {REMAT_LOSS_TOL}); eager step peak "
+        f"dots - full {(out['dots']['eager']['peak_bytes'] - out['full']['eager']['peak_bytes']) / 2**30:+.3f} GiB; "
         f"held after the forward dots - full "
         f"{(out['dots']['after_forward_bytes'] - out['full']['after_forward_bytes']) / 2**30:+.3f} GiB")
     return out
@@ -2063,9 +2149,12 @@ def train_path(torch, dev, gpu_line):
     """The training entry point's code (``repro_torch.launch.train``) on
     full-width qwen1.5-0.5b in its own dtypes (bf16 params and
     activations, fp32 AdamW master, its config's remat "dots"): 20 steps
-    at B 8, S 128 with an asynchronous checkpoint at step 10; the remat
-    sub-step (``remat_compare``); a fresh trainer resumed from the
-    checkpoint; Algorithm 2 at 128x128 tiles over the reference
+    at B 8, S 128 through ``build_trainer``'s graphed step (one CUDA graph
+    captured in step 0, replayed after; its captures, pool and the copies
+    of its functional contract reported) with an asynchronous checkpoint
+    at step 10; the remat sub-step (``remat_compare``: eager and graphed
+    under "full" and "dots"); a fresh graphed trainer resumed from the
+    checkpoint; Algorithm 2 (its fine-tunes through one graphed step) at 128x128 tiles over the reference
     launcher's structures (the embedding too); the survivors packed
     (``launch.train.pack_pruned``); ``lm_forward`` packed against masked
     dense (fp32 copy gated, bf16 reported) with exact BSR launch counts;
@@ -2077,6 +2166,7 @@ def train_path(torch, dev, gpu_line):
     import types
 
     import numpy as np
+    from repro_torch.analysis import runtime as analysis_runtime
     from repro_torch.configs import get_config
     from repro_torch.core import count_zero_structures
     from repro_torch.core.masks import map_tree
@@ -2140,8 +2230,15 @@ def train_path(torch, dev, gpu_line):
     if isinstance(share, float):
         for row in busy["top"][:5]:
             log(f"    {row['ms']:9.3f} ms {row['calls']:6d} calls  {row['name']}")
+    gstep = trainer.step_fn
+    copies = graph_copies(torch, gstep, trainer.state, pipe.batch_at(0))
+    rep["training"]["graph"] = dict(stats=gstep.stats(), pool_bytes=gstep.pool_bytes(),
+                                    copies=copies)
+    log(f"  training, graphed: " + graph_line(gstep.stats(), gstep.pool_bytes(), copies))
+    trainer.step_fn = gstep = None          # the trainer's graph is dropped here
+    torch.cuda.empty_cache()
     rep["remat"] = counted(segments, "remat", lambda: remat_compare(
-        torch, cfg, trainer.state, pipe, opt_cfg, gpu_line))
+        torch, dev, cfg, trainer.state, pipe, opt_cfg, gpu_line))
 
     # --- 2. checkpoint at 10 and resume -------------------------------------
     steps_saved = trainer.ckpt.committed_steps()
@@ -2172,11 +2269,13 @@ def train_path(torch, dev, gpu_line):
 
     # --- 3. Algorithm 2 -------------------------------------------------------
     t0 = time.perf_counter()
+    events = analysis_runtime.compile_events()
     params, masks, logs, structures, pruner = counted(
         segments, "prune", lambda: launch_train.prune(
             trainer.state["params"], cfg, pipe, opt_cfg, lr=TRAIN["lr"],
             target=TRAIN["target"]))
     prune_s = time.perf_counter() - t0
+    prune_captures = analysis_runtime.compile_events() - events
     del trainer
     if not any(lg.structure_sparsity > 0 for lg in logs):
         raise AssertionError("Algorithm 2 logged no iteration with "
@@ -2196,7 +2295,8 @@ def train_path(torch, dev, gpu_line):
                   knapsack_method=lg.knapsack_method,
                   reduction=lg.reduction().tolist()) for lg in logs]
     rep["prune"] = dict(iterations=iters, seconds=prune_s, rolled_back=rolled_back,
-                        structures=structures.total_structures)
+                        structures=structures.total_structures,
+                        captures=prune_captures)
     for it in iters:
         log(f"  prune it={it['iteration']} s={it['sparsity']} metric "
             f"{it['metric']:.4f} structs={100 * it['structure_sparsity']:.1f}% "
@@ -2207,7 +2307,8 @@ def train_path(torch, dev, gpu_line):
     log(f"  Algorithm 2 over {structures.total_structures} tiles of 128x128 "
         f"({len(structures.infos)} weights, the embedding's "
         f"{sum(i.num_structures for i in structures.infos if i.path.startswith('embed'))} "
-        f"among them): {len(logs)} iterations in {prune_s:.1f}s{note}; on {gpu_line}")
+        f"among them): {len(logs)} iterations in {prune_s:.1f}s{note}; "
+        f"{prune_captures} graph capture(s) over the fine-tunes; on {gpu_line}")
 
     # --- 4. packed against masked dense ---------------------------------------
     ev = pipe.batch_at(10_000)
@@ -2364,23 +2465,57 @@ def packed_forward(torch, name, run, segments):
     return rep, cap
 
 
+PAPER_GRAPH_TOL = 1e-5     # graphed vs eager classifier params, relative
+
+
 def train_timing(torch, run, kw, steps=20):
     """ms per masked AdamW step (the fine-tune's settings, on the pruned
-    model) and the card's busy share over the same steps profiled."""
+    model) and the card's busy share over the same steps profiled, for
+    ``train_classifier`` eager (``cuda_graphs=False``) and graphed (one
+    capture per call, then replays), each from the same params; the
+    final params of the two held within ``PAPER_GRAPH_TOL`` relative
+    (each leaf's max |diff| over its max |value|)."""
+    from repro_torch.core.structures import iter_leaves
     from repro_torch.paper.fpga_repro import train_classifier
 
-    def tune():
+    def tune(graphs, log=None):
         p = train_classifier(run.params, run.masks, run.forward, kw["batch_fn"],
-                             steps, lr=2e-3, seed0=10_000)
+                             steps, lr=2e-3, seed0=10_000, cuda_graphs=graphs,
+                             graph_log=log)
         torch.cuda.synchronize()
         return p
 
-    tune()                                          # warm
-    t0 = time.perf_counter()
-    tune()
-    wall = time.perf_counter() - t0
-    busy = device_busy(torch, tune, wall)
-    return dict(steps=steps, ms_per_step=wall * 1e3 / steps, device=busy)
+    out, final = {"steps": steps}, {}
+    for mode, graphs in (("eager", False), ("graphed", True)):
+        warm = tune(graphs)
+        log = []
+        t0 = time.perf_counter()
+        final[mode] = tune(graphs, log)
+        wall = time.perf_counter() - t0
+        busy = device_busy(torch, lambda: tune(graphs), wall)
+        r = dict(ms_per_step=wall * 1e3 / steps, device=busy)
+        if graphs:
+            cap = log[0]
+            r.update(capture_seconds=cap["capture_seconds"], capture_split=cap["split"],
+                     replays=cap["replays"],
+                     replay_ms_per_step=(wall - cap["capture_seconds"]) * 1e3
+                     / max(steps - 1, 1))
+        out[mode] = r
+        if not graphs:
+            final["eager again"] = warm
+
+    def rel(a, b):
+        return {path: float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for (path, g), (_, w) in zip(iter_leaves(a), iter_leaves(b))}
+    errs = rel(final["graphed"], final["eager"])
+    out["graphed_vs_eager"] = max(errs.values())
+    out["eager_vs_eager"] = max(rel(final["eager again"], final["eager"]).values())
+    if out["graphed_vs_eager"] > PAPER_GRAPH_TOL:
+        raise AssertionError(f"train_classifier graphed vs eager params: {errs} "
+                             f"(relative, tolerance {PAPER_GRAPH_TOL})")
+    out["ms_per_step"] = out["graphed"]["ms_per_step"]
+    out["device"] = out["graphed"]["device"]
+    return out
 
 
 def tf32_check(torch, run):
@@ -2481,10 +2616,11 @@ def paper_path(torch, dev, gpu_line):
     for mod, model in ((table2_jets, "jets-mlp"), (table3_svhn, "svhn-cnn"),
                        (table5_lenet, "lenet-fmnist")):
         t_table = time.perf_counter()
+        graph_log = []
         for i, (labels, kw) in enumerate(mod.experiments(quick=False, device=dev)):
             t0 = time.perf_counter()
             run = counted(segments, f"{model} row {i}",
-                          lambda: prune_experiment(**kw))
+                          lambda: prune_experiment(**kw, graph_log=graph_log))
             row = summarize(run)
             row.update(labels)
             line = mod.lines([row])[0]
@@ -2536,16 +2672,38 @@ def paper_path(torch, dev, gpu_line):
                     f"launches, argmax agreement {p['argmax_agreement']:.4f}")
         # the last row's pruned model: step time and busy share; the image
         # models' forward against the CPU
+        table_s = time.perf_counter() - t_table
         timing = train_timing(torch, run, kw)
-        timing["table_seconds"] = time.perf_counter() - t_table
+        timing["table_seconds"] = table_s
+        caps_s = [r["capture_seconds"] for r in graph_log]
+        timing["table_graphs"] = dict(
+            calls=len(graph_log), steps=sum(r["steps"] for r in graph_log),
+            capture_seconds=sum(caps_s),
+            capture_seconds_per_call=sum(caps_s) / max(len(caps_s), 1),
+            seconds_in_calls=sum(r["seconds"] for r in graph_log))
         if model != "jets-mlp":
             timing["cpu_parity"] = tf32_check(torch, run)
         rep["models"][model] = timing
-        share = timing["device"]["busy_share"]
-        log(f"  {model}: table {timing['table_seconds']:.1f}s; "
-            f"{timing['ms_per_step']:.2f} ms per train step; card busy "
-            + (f"{100 * share:.1f}%" if isinstance(share, float) else
-               f"not measured ({timing['device'].get('error')})")
+        tg = timing["table_graphs"]
+        for mode in ("eager", "graphed"):
+            r = timing[mode]
+            share = r["device"]["busy_share"]
+            log(f"  {model} {mode}: {r['ms_per_step']:.2f} ms per train step over "
+                f"{timing['steps']} steps"
+                + (f" (capture {r['capture_seconds']:.3f}s = "
+                   + ", ".join(f"{k} {v:.3f}s" for k, v in r["capture_split"].items())
+                   + f"; {r['replays']} replays at {r['replay_ms_per_step']:.2f} ms)"
+                   if mode == "graphed" else "")
+                + "; card busy "
+                + (f"{100 * share:.1f}% ({r['device']['device_busy_ms'] / timing['steps']:.3f} "
+                   f"ms of device time a step)" if isinstance(share, float) else
+                   f"not measured ({r['device'].get('error')})") + f"; on {gpu_line}")
+        log(f"  {model}: table {table_s:.1f}s, {tg['calls']} train_classifier calls "
+            f"({tg['steps']} steps) graphed, capture {tg['capture_seconds']:.2f}s in all "
+            f"({tg['capture_seconds_per_call']:.3f}s a call) of {tg['seconds_in_calls']:.1f}s "
+            f"in the calls; graphed vs eager params within "
+            f"{timing['graphed_vs_eager']:.2e} relative (gate {PAPER_GRAPH_TOL}), eager "
+            f"vs eager {timing['eager_vs_eager']:.2e}"
             + (f"; fp32 forward vs CPU {timing['cpu_parity']['tf32_off']:.3g} "
                f"(TF32 on: {timing['cpu_parity']['tf32_on']:.3g})"
                if "cpu_parity" in timing else "") + f"; on {gpu_line}")
@@ -3715,7 +3873,10 @@ def mesh_steps(torch, state, step, pipe, n):
 def mesh_single(rank, spec):
     """Phase 10 (a), one NCCL rank on a (1, 1) mesh: ``MESH["steps"]``
     plain steps, the same steps on DTensor state under the train rules
-    (one more counted by the per-rank counter and profiled), peak memory."""
+    (one more counted by the per-rank counter and profiled), peak memory.
+    The plain baseline stays the eager ``make_train_step``, as the
+    DTensor step it is held against stays eager (a captured DTensor step
+    is not supported)."""
     import faulthandler
 
     import torch

@@ -13,12 +13,14 @@ Architecture
 ``ProjectIndex`` parses every ``.py`` file under the scanned roots into
 ``ModuleInfo``/``FunctionInfo`` records, builds a base-name call graph,
 and computes the set of functions reachable from the serving hot roots
-(``HOT_ROOTS``).  Its "jit registry" is the set of functions the port
-captures or runs as one device program: the function passed to a
-``PackedGraphs(...)``, module functions called inside a ``torch.cuda.graph``
-body, and the hot roots; each records its static names (keyword-only
-parameters, parameters with a constant default, and the graph variant
-keys ``ticks``/``sampled``), as the reference records ``static_argnames``.
+(``HOT_ROOTS``) and from the captured train bodies
+(``TRAIN_CAPTURE_ROOTS``).  Its "jit registry" is the set of functions
+the port captures or runs as one device program: the function passed to
+a ``PackedGraphs(...)``, module functions called inside a
+``torch.cuda.graph`` body, the train bodies and the hot roots; each
+records its static names (keyword-only parameters, parameters with a
+constant default, and the graph variant keys ``ticks``/``sampled``), as
+the reference records ``static_argnames``.
 Rules (see ``repro_torch.analysis.rules``) receive the index and yield
 ``Finding``s.  The framework applies inline suppression comments
 (``# lint: ignore[rule-name]``), compares against a checked-in baseline
@@ -51,6 +53,18 @@ HOT_ROOTS: Tuple[str, ...] = (
     "lm_decode",
     "lm_generate",
     "_decode_chunk_packed",
+)
+
+# The bodies the train graphs capture: `make_train_body`'s `train_body`
+# (the LM step, `train.graphs.GraphedTrainStep`) and `classifier_step_`
+# (`paper.fpga_repro.train_classifier` on the card), the counterparts of
+# the reference's jitted train steps.  Their constructors take a built body,
+# not a named function, so they are registered by name; everything
+# reachable from them is held to the host-sync rule as the serving hot
+# path is.
+TRAIN_CAPTURE_ROOTS: Tuple[str, ...] = (
+    "train_body",
+    "classifier_step_",
 )
 
 # `name = PackedGraphs(fn, ...)` binds a callable `name(packed_in, ticks,
@@ -347,15 +361,17 @@ class ProjectIndex:
                     if c[0] in local]:     # module functions only, not self.fn
                 self._register(name, mod, line)
                 captured.append(name)
-        for name in HOT_ROOTS:
+        for name in HOT_ROOTS + TRAIN_CAPTURE_ROOTS:
             if name in self.defs_by_name:
                 self._register(name, None, 0)
         self._by_path = {m.path: m for m in modules}
         self._alias_cache: Dict[Tuple[str, str], Optional[ModuleInfo]] = {}
         self._hot_defs: Set[int] = set()
         self.hot_functions: Set[str] = self._reach(HOT_ROOTS, self._hot_defs)
+        self._train_defs: Set[int] = set()
         # everything a CUDA graph capture runs
-        self.captured_functions: Set[str] = self._reach(captured)
+        self.captured_functions: Set[str] = (
+            self._reach(captured) | self._reach(TRAIN_CAPTURE_ROOTS, self._train_defs))
 
     def _register(self, name: str, mod: Optional[ModuleInfo], line: int) -> None:
         """Record a captured function with the params and static names of
@@ -422,6 +438,10 @@ class ProjectIndex:
 
     def is_hot(self, fi: FunctionInfo) -> bool:
         return id(fi) in self._hot_defs
+
+    def is_train_captured(self, fi: FunctionInfo) -> bool:
+        """Reachable from a captured train body (``TRAIN_CAPTURE_ROOTS``)."""
+        return id(fi) in self._train_defs
 
     def jit_names(self) -> Set[str]:
         """Names of captured callables, the hot roots and graph replays."""

@@ -3,9 +3,10 @@
 Two flavors, as in the reference's rule:
 
 * **in-hot** — a sync op inside a function reachable from the serving
-  hot roots: `.item()`, `.tolist()`, `.numpy()`, `.cpu()`, `.to("cpu")`,
-  `np.asarray`/`np.array` of a tensor, `float()/int()/bool()` of a
-  device value, `torch.cuda.synchronize`/`.synchronize()`, and the ops
+  hot roots or from the captured train bodies: `.item()`, `.tolist()`,
+  `.numpy()`, `.cpu()`, `.to("cpu")`, `np.asarray`/`np.array` of a
+  tensor, `float()/int()/bool()` of a device value,
+  `torch.cuda.synchronize`/`.synchronize()`, and the ops
   whose output shape depends on the data and which therefore sync on the
   card (`torch.nonzero`, `masked_select`, boolean-mask indexing,
   `torch.unique`, `repeat_interleave` without `output_size`).  Inside a
@@ -292,7 +293,10 @@ class HostSyncRule(Rule):
                 masks = _mask_names(fi.node)
                 declared = (set() if fi.name in index.captured_functions
                             else _declared_sync_nodes(fi))
-                if index.is_hot(fi):
+                hot = index.is_hot(fi)
+                if hot or index.is_train_captured(fi):
+                    where = ("reachable from the serving hot roots" if hot else
+                             "reachable from the captured train bodies")
                     dv = _device_vars(
                         fi, jit_names, params_device=True,
                         static_names=static_by_fn.get(fi.name, set())
@@ -309,7 +313,7 @@ class HostSyncRule(Rule):
                             line=op.node.lineno, col=op.node.col_offset,
                             symbol=fi.qualname,
                             message=f"{op.what} in hot-path function `{fi.name}` "
-                            f"(reachable from the serving hot roots)",
+                            f"({where})",
                         )
                 else:
                     dv = _device_vars(fi, jit_names, params_device=False,

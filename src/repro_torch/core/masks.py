@@ -26,6 +26,7 @@ from .structures import (
 __all__ = [
     "build_structures", "init_masks", "apply_masks", "masks_from_knapsack",
     "sparsity_report", "count_zero_structures", "map_tree", "tree_leaves",
+    "copy_tree_",
 ]
 
 
@@ -66,6 +67,16 @@ def tree_leaves(tree) -> List[Any]:
     """Non-``None`` leaves in the reference's pytree order (dict keys
     sorted, list items in order)."""
     return [leaf for _, leaf in iter_leaves(tree)]
+
+
+def copy_tree_(dst, src) -> None:
+    """``dst.copy_(src)`` leaf by leaf over two trees of one layout (the
+    same paths; ``None`` leaves are skipped), as one batched copy."""
+    d, s = list(iter_leaves(dst)), list(iter_leaves(src))
+    if [p for p, _ in d] != [p for p, _ in s]:
+        raise ValueError("copy_tree_: the trees' layouts differ")
+    if d:
+        torch._foreach_copy_([t for _, t in d], [t for _, t in s])
 
 
 def _get_path(tree: Mapping[str, Any], path: str):

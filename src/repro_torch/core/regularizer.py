@@ -23,6 +23,33 @@ from .structures import LayerStructures, structure_norms_dense
 __all__ = ["group_lasso", "make_regularizer"]
 
 
+def _structure_scales(structures: LayerStructures,
+                      resource_model: Optional[TPUResourceModel]) -> list:
+    """Each layer's ``cost_i / sqrt(|w_i|)`` (host floats)."""
+    scales = []
+    for info in structures.infos:
+        if resource_model is not None:
+            cost = float(np.sum(resource_model.structure_cost(info.blocking)))
+        else:
+            cost = 1.0
+        # group-lasso scaling by sqrt(group size): comparable across blockings
+        scales.append(float(cost / np.sqrt(info.block_elems)))
+    return scales
+
+
+def _weighted_norms(params: Mapping[str, Any], structures: LayerStructures,
+                    scales: list, strength: float) -> torch.Tensor:
+    total = None
+    for info, scale in zip(structures.infos, scales):
+        w = _get_path(params, info.path)
+        norms = structure_norms_dense(w, info)  # (planes, gk, gn) fp32
+        term = scale * torch.sum(norms)
+        total = term if total is None else total + term
+    if total is None:
+        return torch.zeros((), dtype=torch.float32)
+    return strength * total
+
+
 def group_lasso(
     params: Mapping[str, Any],
     structures: LayerStructures,
@@ -31,29 +58,17 @@ def group_lasso(
     strength: float = 1e-4,
 ) -> torch.Tensor:
     """sum_i  lambda * cost_i * ||w_i||_2 / sqrt(|w_i|)  over structures."""
-    total = None
-    for info in structures.infos:
-        w = _get_path(params, info.path)
-        norms = structure_norms_dense(w, info)  # (planes, gk, gn) fp32
-        if resource_model is not None:
-            cost = float(np.sum(resource_model.structure_cost(info.blocking)))
-        else:
-            cost = 1.0
-        # group-lasso scaling by sqrt(group size): comparable across blockings
-        scale = cost / np.sqrt(info.block_elems)
-        term = float(scale) * torch.sum(norms)
-        total = term if total is None else total + term
-    if total is None:
-        return torch.zeros((), dtype=torch.float32)
-    return strength * total
+    return _weighted_norms(params, structures,
+                           _structure_scales(structures, resource_model), strength)
 
 
 def make_regularizer(structures: LayerStructures, resource_model=None,
                      strength: float = 1e-4):
-    """params -> scalar penalty."""
+    """params -> scalar penalty (``group_lasso``, its per-layer scales
+    computed once here rather than in every step)."""
+    scales = _structure_scales(structures, resource_model)
 
     def reg(params):
-        return group_lasso(params, structures, resource_model=resource_model,
-                           strength=strength)
+        return _weighted_norms(params, structures, scales, strength)
 
     return reg

@@ -18,10 +18,14 @@ expert weights as BSR, the masked embedding and router dense) and the
 packed forward is held against the masked dense one.
 
 The run is on the card unless ``--device cpu`` is given; without a card
-it fails rather than fall back.  ``--mesh single|multi`` builds the
-production mesh (``launch/mesh.py``) over the process group, which
-raises its ``RuntimeError`` on a world smaller than 256 or 512 ranks, as
-the reference's launcher does on fewer devices, and trains over it:
+it fails rather than fall back.  On the card the train step and the
+fine-tune's step run as CUDA graph replays (``train.GraphedTrainStep``
+over ``make_train_body``, the reference's ``jax.jit`` of its step); on
+the CPU, and under a mesh, they run eagerly (``make_train_step``).
+``--mesh single|multi`` builds the production mesh (``launch/mesh.py``)
+over the process group, which raises its ``RuntimeError`` on a world
+smaller than 256 or 512 ranks, as the reference's launcher does on
+fewer devices, and trains over it:
 ``LMPipeline(mesh=)`` shards each batch over "data", and the state is
 replicated, since the launcher installs no rules, as the reference's
 does: pure data parallelism, the gradients all-reduced.
@@ -52,21 +56,23 @@ def build_trainer(cfg, *, steps: int, batch: int, seq: int, lr: float,
     """(trainer, pipeline, AdamW config) of the launcher's training run:
     seeded params on ``device``, AdamW by ``opt`` (default: fp32 master
     weights unless the params are fp32),
-    ``warmup_cosine(lr, steps // 10 + 1, steps)``.  With
-    ``mesh`` (a ``DeviceMesh``; ``device`` is then the rank's) the state
-    is replicated over it, the batches sharded over "data", and every
-    step runs under the mesh."""
+    ``warmup_cosine(lr, steps // 10 + 1, steps)``.  The step is
+    ``train.train_step_for``'s: graphed on the card.  With ``mesh`` (a
+    ``DeviceMesh``; ``device`` is then the rank's) the state is
+    replicated over it, the batches sharded over "data", and every step
+    runs eagerly under the mesh."""
     from repro_torch.core.masks import map_tree
     from repro_torch.data import LMPipeline, TokenTask
     from repro_torch.distributed import distribute_tree, use_mesh
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, warmup_cosine
-    from repro_torch.train import Trainer, TrainerConfig, init_train_state, make_train_step
+    from repro_torch.train import Trainer, TrainerConfig, init_train_state, train_step_for
 
     params = init_params(cfg, seed=seed, device=device)
     opt_cfg = opt or AdamWConfig(use_master=cfg.param_dtype != "float32")
     state = init_train_state(params, opt_cfg)
-    step = make_train_step(cfg, opt_cfg, warmup_cosine(lr, steps // 10 + 1, steps))
+    step = train_step_for(cfg, opt_cfg, warmup_cosine(lr, steps // 10 + 1, steps),
+                          device, mesh=mesh)
     pipe = LMPipeline(TokenTask(vocab=cfg.vocab, seed=seed), batch, seq,
                       device=device, mesh=mesh)
     if mesh is not None:
@@ -113,14 +119,17 @@ def prune(params, cfg, pipe, opt_cfg, *, lr: float, target: float):
     launcher drives it: ``constant_step([target] * 2, 0.1)``, tolerance
     0.05 on the eval loss (lower is better), each iteration fine-tuned
     for ``FINETUNE_STEPS`` steps with ``warmup_cosine(lr / 3, 2, 20)`` on
-    fresh optimizer state.  Returns (params, masks, logs, structures,
+    fresh optimizer state.  On the card one graphed step
+    (``train.train_step_for``) serves every fine-tune: each copies its
+    fresh state and masks in.  Returns (params, masks, logs, structures,
     pruner)."""
     from repro_torch.core import (
         IterativePruner, PruneConfig, TPUResourceModel, apply_masks, constant_step,
     )
+    from repro_torch.core.masks import tree_leaves
     from repro_torch.models import cross_entropy_loss, lm_forward
     from repro_torch.optim import warmup_cosine
-    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import init_train_state, train_step_for
 
     structures = prune_structures(params)
     pruner = IterativePruner(
@@ -131,7 +140,8 @@ def prune(params, cfg, pipe, opt_cfg, *, lr: float, target: float):
                     tolerance=0.05, higher_is_better=False),
     )
     eval_batch = pipe.batch_at(10_000)
-    fstep = make_train_step(cfg, opt_cfg, warmup_cosine(lr / 3, 2, 20))
+    fstep = train_step_for(cfg, opt_cfg, warmup_cosine(lr / 3, 2, 20),
+                           tree_leaves(params)[0].device, what="fine-tune step")
 
     @torch.no_grad()
     def eval_fn(p, masks):

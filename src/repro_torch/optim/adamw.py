@@ -10,8 +10,11 @@ the same numbers.  State layout mirrors the params tree:
 Masking (paper Alg. 2 fine-tuning): the forward uses ``params * mask``,
 so gradients of pruned entries are already zero, but weight decay and
 the moments would drift them off zero; the update, ``m`` and ``v`` are
-therefore masked again.  The update is functional: it returns new
-tensors and leaves its inputs as they were.
+therefore masked again.  ``adamw_update`` is functional: it returns
+new tensors and leaves its inputs as they were.  ``adamw_update_`` is
+its in-place form for a captured train step: the same update, written
+back into the given params and state.  Neither makes a host-to-device
+copy, so both run under a CUDA graph capture.
 """
 from __future__ import annotations
 
@@ -20,10 +23,10 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.core.masks import map_tree, tree_leaves
+from repro_torch.core.masks import copy_tree_, map_tree, tree_leaves
 
-__all__ = ["AdamWConfig", "init_opt_state", "adamw_update", "global_norm",
-           "clip_by_global_norm"]
+__all__ = ["AdamWConfig", "init_opt_state", "adamw_update", "adamw_update_",
+           "global_norm", "clip_by_global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,10 +82,12 @@ def adamw_update(
     grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
     count = state["count"] + 1
     cf = count.to(torch.float32)
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
-                                       device=cf.device), cf)
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
-                                       device=cf.device), cf)
+    # the bases are filled on the device (a ``torch.tensor`` of a Python
+    # float would be a host-to-device copy, which a capture refuses)
+    b1c = 1.0 - torch.pow(torch.full((), cfg.b1, dtype=torch.float32,
+                                     device=cf.device), cf)
+    b2c = 1.0 - torch.pow(torch.full((), cfg.b2, dtype=torch.float32,
+                                     device=cf.device), cf)
 
     def upd(p, g, m, v, master, mask):
         gf = g.to(torch.float32)
@@ -111,6 +116,23 @@ def adamw_update(
     if "master" in state:
         new_state["master"] = map_tree(lambda r: r.master, out)
     return map_tree(lambda r: r.param, out), new_state
+
+
+def adamw_update_(
+    params,
+    grads,
+    state: Dict[str, Any],
+    cfg: AdamWConfig,
+    lr,
+    masks: Optional[Mapping[str, Any]] = None,
+) -> None:
+    """``adamw_update`` in place: the new params, ``m``, ``v``,
+    ``master`` and ``count`` are copied into the tensors of ``params``
+    and ``state``, which keep their storage (a CUDA graph replays over
+    them).  The numbers are ``adamw_update``'s, bit for bit."""
+    new_params, new_state = adamw_update(params, grads, state, cfg, lr, masks=masks)
+    copy_tree_(params, new_params)
+    copy_tree_(state, new_state)
 
 
 @dataclasses.dataclass

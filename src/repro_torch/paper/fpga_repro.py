@@ -9,18 +9,24 @@ Resource vectors use the paper's own units via
 reported reductions are directly comparable with Tables II/III/V.
 
 Training is masked AdamW (no master copy, no weight decay) on the
-classifier's cross-entropy, step by step in eager PyTorch on the params'
-device (the reference jits the step).  Batches come from the task as CPU
-tensors and are moved to that device per step; the validation batch is
-moved once.  ``prune_experiment`` returns the pruned state itself (the
-§III-C packing needs it); ``run_prune_experiment`` returns the
+classifier's cross-entropy.  On the card ``train_classifier`` captures
+its step (``classifier_step_``, in place on a static params / optimizer
+state / batch) as one CUDA graph per call and replays it, as the
+reference's ``jax.jit`` inside the function traces once per call; each
+batch goes through a pinned staging buffer with an asynchronous copy
+into the static input (the host fills it again once that copy ended, so
+it runs up to one replay ahead).  On the CPU, or with ``cuda_graphs=False``, the
+step runs eagerly and each batch is moved to the params' device.  The
+validation batch is moved once; ``accuracy`` runs eagerly, as the
+reference's does.  ``prune_experiment`` returns the pruned state itself
+(the §III-C packing needs it); ``run_prune_experiment`` returns the
 reference's summary dict, key for key.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,11 +46,13 @@ from repro_torch.core import (
 )
 from repro_torch.core.masks import map_tree, tree_leaves
 from repro_torch.device import resolve_device
-from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.optim import AdamWConfig, adamw_update, adamw_update_, init_opt_state
+from repro_torch.serving.graphs import GraphFailure, _sync_debug_error, capture
 
 __all__ = ["FpgaResourceModel", "bram_c", "classifier_loss_and_grads",
-           "train_classifier", "accuracy", "PruneRun", "prune_experiment",
-           "summarize", "run_prune_experiment", "run_experiments"]
+           "classifier_step_", "train_classifier", "accuracy", "PruneRun",
+           "prune_experiment", "summarize", "run_prune_experiment",
+           "run_experiments"]
 
 Batch = Tuple[torch.Tensor, torch.Tensor]
 
@@ -104,19 +112,108 @@ def classifier_loss_and_grads(params, masks, forward, x: torch.Tensor,
     return loss.detach(), map_tree(lambda _: next(grads), live)
 
 
+def classifier_step_(params, opt, masks, forward, x: torch.Tensor,
+                     y: torch.Tensor, opt_cfg: AdamWConfig, lr, reg=None
+                     ) -> torch.Tensor:
+    """One masked AdamW step of ``train_classifier`` in place: the new
+    params and optimizer state are written into ``params`` and ``opt``.
+    Returns the loss before the step (a device scalar).  The step a CUDA
+    graph captures; its numbers are the eager step's, bit for bit."""
+    loss, grads = classifier_loss_and_grads(params, masks, forward, x, y, reg)
+    adamw_update_(params, grads, opt, opt_cfg, lr, masks=masks)
+    return loss
+
+
 def train_classifier(params, masks, forward, batch_fn: Callable[[int], Batch],
-                     steps: int, lr: float = 5e-3, reg=None, seed0: int = 0):
+                     steps: int, lr: float = 5e-3, reg=None, seed0: int = 0, *,
+                     cuda_graphs: bool = True,
+                     graph_log: Optional[List[Dict[str, Any]]] = None):
     """``steps`` masked AdamW steps on ``batch_fn(seed0 + s)``; returns
-    the new params (the input tree is left as it was)."""
+    the new params (the input tree is left as it was).  On the card,
+    unless ``cuda_graphs`` is False, the steps replay one CUDA graph
+    captured in this call (``_graphed_steps``; a failure raises
+    ``GraphFailure``), and ``graph_log``, if given, gets the call's
+    capture record appended."""
     opt_cfg = AdamWConfig(use_master=False, weight_decay=0.0)
-    opt = init_opt_state(params, opt_cfg)
     dev = _device_of(params)
+    if dev.type == "cuda" and cuda_graphs and steps > 0:
+        return _graphed_steps(params, masks, forward, batch_fn, steps, lr, reg,
+                              seed0, opt_cfg, graph_log)
+    opt = init_opt_state(params, opt_cfg)
     for s in range(steps):
         x, y = batch_fn(seed0 + s)
         _, grads = classifier_loss_and_grads(params, masks, forward, x.to(dev),
                                              y.to(dev), reg)
         params, opt = adamw_update(params, grads, opt, opt_cfg, lr, masks=masks)
     return params
+
+
+class _Staging:
+    """A batch's way to the card: a pinned host buffer per input, copied
+    asynchronously into the static device input; the buffer is written
+    again only after its last copy ended."""
+
+    def __init__(self, x: torch.Tensor, y: torch.Tensor, dev: torch.device):
+        self.static = [torch.empty(t.shape, dtype=t.dtype, device=dev) for t in (x, y)]
+        self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in (x, y)]
+        self.copied = None
+
+    def ready(self) -> None:
+        """Wait until the buffer's last copy to the card has ended."""
+        if self.copied is not None:
+            self.copied.synchronize()
+
+    def put(self, x: torch.Tensor, y: torch.Tensor) -> None:
+        """Stage ``(x, y)`` (host tensors, after ``ready``) and enqueue
+        their copies into the static inputs on the current stream."""
+        for t, s in zip((x, y), self.static):
+            if t.shape != s.shape or t.dtype != s.dtype:
+                raise GraphFailure(f"classifier step captured over {tuple(s.shape)} "
+                                   f"{s.dtype}, called with {tuple(t.shape)} {t.dtype}")
+        for t, h, s in zip((x, y), self.host, self.static):
+            h.copy_(t)
+            s.copy_(h, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+
+
+def _graphed_steps(params, masks, forward, batch_fn, steps, lr, reg, seed0,
+                   opt_cfg, graph_log):
+    """``train_classifier`` on the card: the loop owns a static copy of
+    the params and fresh optimizer state; the first step is the
+    capture's warm-up run, the others replay the graph, each with its
+    batch copy under sync-debug "error"; the params are cloned out once,
+    at the end."""
+    dev = _device_of(params)
+    t0 = time.perf_counter()
+    try:
+        p = map_tree(torch.clone, params)
+        opt = init_opt_state(p, opt_cfg)
+        x, y = batch_fn(seed0)
+        stage = _Staging(x, y, dev)
+        stage.put(x, y)
+    except RuntimeError as err:
+        raise GraphFailure(f"capture of the classifier step failed: {err}") from err
+    sx, sy = stage.static
+    _, graph = capture(lambda: classifier_step_(p, opt, masks, forward, sx, sy,
+                                                opt_cfg, lr, reg),
+                       dev, torch.cuda.graph_pool_handle(), "classifier step")
+    for s in range(1, steps):
+        x, y = batch_fn(seed0 + s)
+        stage.ready()
+        try:
+            with _sync_debug_error():
+                stage.put(x, y)
+                graph.replay()
+        except RuntimeError as err:
+            raise GraphFailure(f"replay of the classifier step failed: {err}") from err
+    out = map_tree(torch.clone, p)
+    if graph_log is not None:
+        graph_log.append(dict(steps=steps, capture_seconds=graph.capture_seconds,
+                              split=dict(graph.split), replays=graph.replays,
+                              seconds=time.perf_counter() - t0))
+    return out
 
 
 @torch.no_grad()
@@ -161,10 +258,12 @@ def prune_experiment(
     min_size: int = 64,
     seed: int = 0,
     device=None,
+    graph_log: Optional[List[Dict[str, Any]]] = None,
 ) -> PruneRun:
     """Full Algorithm-2 run on ``device`` (default: the card): seeded
     init, pretraining, then the pruner with a masked fine-tune per
-    iteration."""
+    iteration.  ``graph_log`` collects the capture record of each
+    ``train_classifier`` call on the card."""
     dev = resolve_device(device)
     params = init_fn(generator=torch.Generator(device=dev).manual_seed(seed),
                      device=dev)
@@ -172,7 +271,8 @@ def prune_experiment(
     structures = build_structures(params, blocking_per_layer, min_size=min_size)
     masks0 = init_masks(params, structures)
     t0 = time.time()
-    params = train_classifier(params, masks0, forward, batch_fn, pretrain_steps)
+    params = train_classifier(params, masks0, forward, batch_fn, pretrain_steps,
+                              graph_log=graph_log)
     base_acc = accuracy(params, masks0, forward, val)
     pretrain_s = time.time() - t0
 
@@ -185,7 +285,7 @@ def prune_experiment(
     params, masks, logs = pruner.run(
         params,
         lambda p, m: train_classifier(p, m, forward, batch_fn, finetune_steps,
-                                      lr=2e-3, seed0=10_000),
+                                      lr=2e-3, seed0=10_000, graph_log=graph_log),
         lambda p, m: accuracy(p, m, forward, val),
     )
     return PruneRun(params=params, masks=masks, logs=logs,

@@ -33,7 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import init_caches, init_params, lm_decode, lm_generate, lm_prefill
 from repro_torch.optim import AdamWConfig, constant_lr
 from repro_torch.sparse import knapsack_prune, pack_params, sparsity_summary, unpack_params
-from repro_torch.train import init_train_state, make_train_step
+from repro_torch.train import init_train_state, train_step_for
 
 __all__ = ["run", "main"]
 
@@ -52,7 +52,7 @@ def run(device=None, log: Callable[[str], Any] = print) -> Dict[str, Any]:
     # brief training so magnitudes are meaningful
     opt_cfg = AdamWConfig(use_master=False)
     state = init_train_state(params, opt_cfg)
-    step = make_train_step(cfg, opt_cfg, constant_lr(1e-3))
+    step = train_step_for(cfg, opt_cfg, constant_lr(1e-3), dev)
     task = TokenTask(vocab=cfg.vocab, noise=0.02)
     for s in range(30):
         batch = {k: v.to(dev) for k, v in task.batch(s, 8, 64).items()}

@@ -40,7 +40,7 @@ from repro_torch.data import LMPipeline, TokenTask
 from repro_torch.device import resolve_device
 from repro_torch.models import cross_entropy_loss, init_params, lm_forward
 from repro_torch.optim import AdamWConfig, warmup_cosine
-from repro_torch.train import Trainer, TrainerConfig, init_train_state, make_train_step
+from repro_torch.train import Trainer, TrainerConfig, init_train_state, train_step_for
 
 __all__ = ["run", "main"]
 
@@ -76,8 +76,8 @@ def run(*, full: bool = False, steps: Optional[int] = None,
         params = init_params(cfg, seed=0, device=dev)
         opt_cfg = AdamWConfig(use_master=False)
         state = init_train_state(params, opt_cfg)
-        step_fn = make_train_step(
-            cfg, opt_cfg, warmup_cosine(3e-4, max(steps // 10, 1), steps))
+        step_fn = train_step_for(
+            cfg, opt_cfg, warmup_cosine(3e-4, max(steps // 10, 1), steps), dev)
         task = TokenTask(vocab=cfg.vocab, noise=0.02)
         pipe = LMPipeline(task, batch, seq, device=dev)
 
@@ -102,7 +102,8 @@ def run(*, full: bool = False, steps: Optional[int] = None,
                         higher_is_better=False),
         )
         val = pipe.batch_at(1_000_000)
-        fstep = make_train_step(cfg, opt_cfg, warmup_cosine(1e-4, 2, 30))
+        fstep = train_step_for(cfg, opt_cfg, warmup_cosine(1e-4, 2, 30), dev,
+                               what="fine-tune step")
 
         @torch.no_grad()
         def eval_fn(p, masks):

@@ -15,7 +15,10 @@ with:
 Gradients come from ``torch.autograd.grad`` over fresh leaves of the
 params, so the step is functional like the reference's: the input state
 is left as it was and a new one is returned.  The reference compiles the
-step with ``jax.jit``; here it runs op by op.
+step with ``jax.jit``; here ``make_train_step`` runs op by op, and
+``make_train_body`` is the same step in place, which
+``train.graphs.GraphedTrainStep`` captures as one CUDA graph and runs
+with the functional contract.
 
 Sharded state: the three steps take a state of DTensors (placed by
 ``launch.specs.cell_shardings`` through ``distributed.distribute_tree``)
@@ -44,10 +47,15 @@ from repro_torch.models.transformer import (
     lm_decode,
     lm_forward,
 )
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    adamw_update,
+    adamw_update_,
+    init_opt_state,
+)
 
-__all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
-           "init_train_state"]
+__all__ = ["make_train_step", "make_train_body", "make_prefill_step",
+           "make_decode_step", "init_train_state"]
 
 
 def init_train_state(params, opt_cfg: AdamWConfig, masks=None) -> Dict[str, Any]:
@@ -62,15 +70,11 @@ def init_train_state(params, opt_cfg: AdamWConfig, masks=None) -> Dict[str, Any]
     return state
 
 
-def make_train_step(
-    cfg: ModelConfig,
-    opt_cfg: AdamWConfig,
-    lr_schedule: Callable[[Any], torch.Tensor],
-    *,
-    reg_fn: Optional[Callable] = None,
-    moe_aux_weight: float = 0.01,
-    microbatches: int = 1,
-) -> Callable:
+def _make_grads(cfg: ModelConfig, reg_fn: Optional[Callable],
+                moe_aux_weight: float, microbatches: int) -> Callable:
+    """``grads_of(state, batch) -> (grads, metrics)``: the loss and its
+    gradients (averaged over ``microbatches``), with the metrics
+    ``loss``, ``moe_aux`` and ``total_loss`` as device scalars."""
     def loss_fn(params, masks, batch):
         p = apply_masks(params, masks) if masks is not None else params
         logits, aux = lm_forward(p, batch, cfg)
@@ -106,11 +110,7 @@ def make_train_step(
 
         return (total.detach(), metrics), map_tree(grad_of, live)
 
-    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        with implicit_replication():
-            return _train_step(state, batch)
-
-    def _train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+    def grads_of(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         params = state["params"]
         masks = state.get("masks")
 
@@ -132,23 +132,75 @@ def make_train_step(
                 grads = g_i if grads is None else map_tree(
                     lambda a, b_: a + b_, grads, g_i)
             grads = map_tree(lambda g: g / microbatches, grads)
-
-        lr = lr_schedule(state["step"])
-        new_params, new_opt = adamw_update(
-            params, grads, state["opt"], opt_cfg, lr, masks=masks)
-        new_state = {
-            "params": new_params,
-            "opt": new_opt,
-            "step": state["step"] + 1,
-        }
-        if masks is not None:
-            new_state["masks"] = masks
         metrics = dict(metrics)
         metrics["total_loss"] = total
-        metrics["lr"] = lr
-        return new_state, metrics
+        return grads, metrics
+
+    return grads_of
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig,
+    lr_schedule: Callable[[Any], torch.Tensor],
+    *,
+    reg_fn: Optional[Callable] = None,
+    moe_aux_weight: float = 0.01,
+    microbatches: int = 1,
+) -> Callable:
+    """The functional step ``(state, batch) -> (new state, metrics)``;
+    the metrics are ``loss``, ``moe_aux``, ``total_loss`` and ``lr``."""
+    grads_of = _make_grads(cfg, reg_fn, moe_aux_weight, microbatches)
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        with implicit_replication():
+            grads, metrics = grads_of(state, batch)
+            masks = state.get("masks")
+            lr = lr_schedule(state["step"])
+            new_params, new_opt = adamw_update(
+                state["params"], grads, state["opt"], opt_cfg, lr, masks=masks)
+            new_state = {
+                "params": new_params,
+                "opt": new_opt,
+                "step": state["step"] + 1,
+            }
+            if masks is not None:
+                new_state["masks"] = masks
+            metrics["lr"] = lr
+            return new_state, metrics
 
     return train_step
+
+
+def make_train_body(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig,
+    lr_schedule: Callable[[Any], torch.Tensor],
+    *,
+    reg_fn: Optional[Callable] = None,
+    moe_aux_weight: float = 0.01,
+    microbatches: int = 1,
+) -> Callable:
+    """``make_train_step``'s step in place, the body a CUDA graph
+    captures (``train.graphs.GraphedTrainStep``): ``train_body(state,
+    batch) -> metrics`` writes the new params, optimizer state and step
+    into ``state``'s own tensors (the masks are read only) and returns
+    the metrics as device scalars.  The numbers are ``make_train_step``'s,
+    bit for bit, and the body makes no host-to-device copy and reads
+    nothing back to the host."""
+    grads_of = _make_grads(cfg, reg_fn, moe_aux_weight, microbatches)
+
+    def train_body(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        with implicit_replication():
+            grads, metrics = grads_of(state, batch)
+            lr = lr_schedule(state["step"])
+            adamw_update_(state["params"], grads, state["opt"], opt_cfg, lr,
+                          masks=state.get("masks"))
+            state["step"].add_(1)
+            metrics["lr"] = lr
+            return metrics
+
+    return train_body
 
 
 def _last_position(logits: torch.Tensor) -> torch.Tensor:

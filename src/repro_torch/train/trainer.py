@@ -14,7 +14,11 @@
 
 A step's wall time ends in ``torch.cuda.synchronize()`` when its loss
 lives on the card (the reference's ``jax.block_until_ready``); losses
-are read back to the host only at ``log_every``.
+are read back to the host only at ``log_every`` (the reference's
+``float``).  Both stay outside the step: a graphed step
+(``train.GraphedTrainStep``, the launcher's on the card) replays the
+step alone and returns fresh tensors, so ``self.state`` may be
+checkpointed asynchronously and restored into as with the eager step.
 """
 from __future__ import annotations
 
