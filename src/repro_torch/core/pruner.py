@@ -26,6 +26,8 @@ from typing import Any, Callable, Dict, List, Mapping, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
+
 from .knapsack import KnapsackResult, solve_mdkp
 from .masks import (
     _get_path, init_masks, masks_from_knapsack, sparsity_report, tree_leaves,
@@ -138,7 +140,8 @@ class IterativePruner:
     def prune_step(
         self, params: Mapping[str, Any], sparsity: np.ndarray
     ) -> tuple[Dict[str, Any], KnapsackResult]:
-        values = self.values(params)
+        with tracing.span("pruner.values"):
+            values = self.values(params)
         capacity = (1.0 - np.asarray(sparsity)) * self._baseline
         weights = self._weights
         if self.config.exclude_zero:
@@ -147,9 +150,11 @@ class IterativePruner:
             # a dead structure gets a weight larger than any capacity, so
             # no solver path can select it
             weights = np.where(dead[None, :], capacity.max() * 2 + 1.0, weights)
-        result = solve_mdkp(values, weights, capacity)
-        masks = masks_from_knapsack(params, self.structures,
-                                    result.x.astype(np.float32))
+        with tracing.span("pruner.solve"):
+            result = solve_mdkp(values, weights, capacity)
+        with tracing.span("pruner.masks"):
+            masks = masks_from_knapsack(params, self.structures,
+                                        result.x.astype(np.float32))
         # report true resource usage (without the exclusion inflation)
         result.used = self._weights @ result.x
         return masks, result
@@ -166,7 +171,8 @@ class IterativePruner:
         within tolerance if the final iteration broke the metric budget."""
         cfg = self.config
         masks = init_masks(params, self.structures)
-        baseline_metric = float(eval_fn(params, masks))
+        with tracing.span("pruner.eval"):
+            baseline_metric = float(eval_fn(params, masks))
         sign = 1.0 if cfg.higher_is_better else -1.0
         bound = baseline_metric - sign * cfg.tolerance * abs(baseline_metric)
 
@@ -176,36 +182,44 @@ class IterativePruner:
         for it in range(cfg.max_iters):
             if cfg.schedule.reached(s):
                 break
-            s = cfg.schedule(s, it)
-            t0 = _settled(params)
-            masks, result = self.prune_step(params, s)
-            t1 = _settled(masks)
-            params = finetune_fn(params, masks)
-            t2 = _settled(params)
-            metric = float(eval_fn(params, masks))
-            rep = sparsity_report(params, masks, self.structures)
-            logs.append(
-                PruneIterationLog(
-                    iteration=it,
-                    sparsity=s.copy(),
-                    metric=metric,
-                    knapsack_value=result.value,
-                    knapsack_method=result.method,
-                    resources_used=result.used,
-                    resources_baseline=self._baseline,
-                    structure_sparsity=rep["structure_sparsity"],
-                    weight_sparsity=rep["weight_sparsity"],
-                    seconds=time.time() - t0,
-                    knapsack_seconds=t1 - t0,
-                    finetune_seconds=t2 - t1,
-                )
-            )
-            ok = (metric >= bound) if cfg.higher_is_better else (metric <= bound)
-            logger.info(
-                "prune it=%d s=%s metric=%.4f (baseline %.4f) structs=%.1f%% %s",
-                it, np.array2string(s, precision=2), metric, baseline_metric,
-                100 * rep["structure_sparsity"], "ok" if ok else "TOLERANCE BREAK",
-            )
+            with tracing.span("pruner.iteration", arg=it):
+                s = cfg.schedule(s, it)
+                t0 = _settled(params)
+                with tracing.span("pruner.knapsack"):
+                    masks, result = self.prune_step(params, s)
+                    t1 = _settled(masks)
+                with tracing.span("pruner.finetune"):
+                    params = finetune_fn(params, masks)
+                    t2 = _settled(params)
+                with tracing.span("pruner.eval"):
+                    metric = float(eval_fn(params, masks))
+                with tracing.span("pruner.report"):
+                    rep = sparsity_report(params, masks, self.structures)
+                    logs.append(
+                        PruneIterationLog(
+                            iteration=it,
+                            sparsity=s.copy(),
+                            metric=metric,
+                            knapsack_value=result.value,
+                            knapsack_method=result.method,
+                            resources_used=result.used,
+                            resources_baseline=self._baseline,
+                            structure_sparsity=rep["structure_sparsity"],
+                            weight_sparsity=rep["weight_sparsity"],
+                            seconds=time.time() - t0,
+                            knapsack_seconds=t1 - t0,
+                            finetune_seconds=t2 - t1,
+                        )
+                    )
+                    ok = ((metric >= bound) if cfg.higher_is_better
+                          else (metric <= bound))
+                    logger.info(
+                        "prune it=%d s=%s metric=%.4f (baseline %.4f) "
+                        "structs=%.1f%% %s",
+                        it, np.array2string(s, precision=2), metric,
+                        baseline_metric, 100 * rep["structure_sparsity"],
+                        "ok" if ok else "TOLERANCE BREAK",
+                    )
             if not ok:
                 params, masks = best  # roll back
                 break

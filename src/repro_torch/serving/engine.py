@@ -65,7 +65,7 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
-from repro_torch import prng
+from repro_torch import prng, tracing
 from repro_torch.analysis import runtime as analysis_runtime
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -442,6 +442,8 @@ class ServingEngine:
                 f"max_seq_len {self.max_pages * self.pool.page_size}")
         self._next_rid += 1
         self.requests[req.rid] = req
+        if tracing.enabled():
+            req.queued_ns = time.time_ns()
         if self.scheduler.submit(req):
             self.queue_high_water = max(self.queue_high_water,
                                         self.scheduler.pending)
@@ -494,89 +496,97 @@ class ServingEngine:
                 pins.update(self.prefix_index.match(req.prompt))
         count = 0
         for j, req in enumerate(admitted):
-            slot = free[0]
-            hits: List[int] = []
-            if self.prefix_index is not None:
-                self.prefix_lookups += 1
-                hits = self.prefix_index.match(req.prompt)
-            n_hit = len(hits)
-            total = self.pool.pages_for(req.budget_tokens)
-            need = total - n_hit
-            if self.prefix_index is not None and need > self.pool.free_pages:
-                self.prefix_index.evict(need - self.pool.free_pages,
-                                        exclude=pins | set(hits))
-            try:
-                if self.injector is not None:
-                    self.injector.on_alloc(self, need)
-                fresh = self.pool.alloc_pages(need)
-            except RuntimeError:
-                # nothing of this request is committed yet: requeue it and
-                # the rest of the batch in order, retry at a later boundary
-                self.alloc_failures += 1
-                self._step_progress = True
-                self.scheduler.requeue(admitted[j:])
-                break
-            free.pop(0)
-            self.pool.share(hits)                 # map, don't recompute
-            pages = hits + fresh
-            self._tables[slot] = NULL_PAGE
-            self._tables[slot, :total] = pages
-            # the prefill: one packed upload (tail tokens, the slot's table
-            # row, the slot) and ONE declared host round-trip (first token,
-            # guard flag and the request's decode key, folded on the host);
-            # on the card a graph replay of its (L, start, guard) variant
-            start = n_hit * self.pool.page_size
-            tail = req.prompt[start:]
-            packed = np.concatenate([tail, self._tables[slot],
-                                     np.asarray([slot], np.int32)])
-            if self.prefill_graphs is not None:
-                first_ok, key = self.prefill_graphs.run(
-                    packed, (tail.size, start, self.nan_guard),
-                    within=functools.partial(self._key_words, req.rid))
-            else:
-                out = _paged_prefill_step(
-                    self.params, self.caches, self._upload(packed),
-                    cfg=self.cfg, max_pages=self.max_pages,
-                    fresh_rows=self._fresh_rows,
-                    scratch_rows=self._scratch_rows, start=start,
-                    guard=self.nan_guard)
-                with analysis_runtime.sync_region("admission"):
-                    first_ok, key = out.cpu().numpy(), self._key_words(req.rid)
-            self.sync_regions["admission"] += 1
-            self.admissions_by_slot[slot] += 1
-            if self.nan_guard and not bool(first_ok[1]):
-                self.guard_trips += 1
-                self.failed += 1
-                self._step_progress = True
-                req.tokens = np.zeros((0,), np.int32)
+            with tracing.span("request.admit", rid=req.rid) as sp:
+                if req.queued_ns is not None:
+                    tracing.add("request.queue", req.queued_ns, sp.start,
+                                rid=req.rid)
+                slot = free[0]
+                hits: List[int] = []
                 if self.prefix_index is not None:
-                    self.prefix_index.drop_pages(pages)
+                    self.prefix_lookups += 1
+                    hits = self.prefix_index.match(req.prompt)
+                n_hit = len(hits)
+                total = self.pool.pages_for(req.budget_tokens)
+                need = total - n_hit
+                short = need - self.pool.free_pages
+                if self.prefix_index is not None and short > 0:
+                    self.prefix_index.evict(short, exclude=pins | set(hits))
+                try:
+                    if self.injector is not None:
+                        self.injector.on_alloc(self, need)
+                    fresh = self.pool.alloc_pages(need)
+                except RuntimeError:
+                    # nothing of this request is committed yet: requeue it
+                    # and the rest of the batch in order, retry at a later
+                    # boundary
+                    self.alloc_failures += 1
+                    self._step_progress = True
+                    self.scheduler.requeue(admitted[j:])
+                    break
+                free.pop(0)
+                self.pool.share(hits)                 # map, don't recompute
+                pages = hits + fresh
                 self._tables[slot] = NULL_PAGE
-                self.scheduler.retire(
-                    req, pages, self.tick, status=RequestStatus.FAILED,
-                    reason="non-finite prefill logits (quarantined)")
-                free.insert(0, slot)
-                continue
-            self._cache_len[slot] = req.prompt_len
-            tok = int(first_ok[0])
-            req.first_token_time = time.perf_counter()
-            req.prefix_hit_pages = n_hit
-            if self.prefix_index is not None:
-                self.prefix_index.insert(req.prompt, pages)
-                if n_hit:
-                    self.prefix_hit_requests += 1
-                self.prefix_pages_shared += n_hit
-            self._tok[slot, 0] = tok
-            self._rngs[slot] = key
-            t, k, p = self.sampling_for(req)
-            self._temp[slot] = t
-            self._topk[slot] = k if k is not None else 0
-            self._topp[slot] = p if p is not None else 1.0
-            req.admitted_at = self.tick
-            req.status = RequestStatus.ACTIVE
-            self.slots[slot] = _Slot(req=req, pages=pages, emitted=[tok])
-            count += 1
-            self._maybe_finish(slot)
+                self._tables[slot, :total] = pages
+                # the prefill: one packed upload (tail tokens, the slot's
+                # table row, the slot) and ONE declared host round-trip (first
+                # token, guard flag and the request's decode key, folded on
+                # the host); on the card a graph replay of its (L, start,
+                # guard) variant
+                start = n_hit * self.pool.page_size
+                tail = req.prompt[start:]
+                packed = np.concatenate([tail, self._tables[slot],
+                                         np.asarray([slot], np.int32)])
+                if self.prefill_graphs is not None:
+                    first_ok, key = self.prefill_graphs.run(
+                        packed, (tail.size, start, self.nan_guard),
+                        within=functools.partial(self._key_words, req.rid))
+                else:
+                    with tracing.span("graphs.run", arg="admission"):
+                        out = _paged_prefill_step(
+                            self.params, self.caches, self._upload(packed),
+                            cfg=self.cfg, max_pages=self.max_pages,
+                            fresh_rows=self._fresh_rows,
+                            scratch_rows=self._scratch_rows, start=start,
+                            guard=self.nan_guard)
+                        with analysis_runtime.sync_region("admission"):
+                            first_ok, key = (out.cpu().numpy(),
+                                             self._key_words(req.rid))
+                self.sync_regions["admission"] += 1
+                self.admissions_by_slot[slot] += 1
+                if self.nan_guard and not bool(first_ok[1]):
+                    self.guard_trips += 1
+                    self.failed += 1
+                    self._step_progress = True
+                    req.tokens = np.zeros((0,), np.int32)
+                    if self.prefix_index is not None:
+                        self.prefix_index.drop_pages(pages)
+                    self._tables[slot] = NULL_PAGE
+                    self.scheduler.retire(
+                        req, pages, self.tick, status=RequestStatus.FAILED,
+                        reason="non-finite prefill logits (quarantined)")
+                    free.insert(0, slot)
+                    continue
+                self._cache_len[slot] = req.prompt_len
+                tok = int(first_ok[0])
+                req.first_token_time = time.perf_counter()
+                req.prefix_hit_pages = n_hit
+                if self.prefix_index is not None:
+                    self.prefix_index.insert(req.prompt, pages)
+                    if n_hit:
+                        self.prefix_hit_requests += 1
+                    self.prefix_pages_shared += n_hit
+                self._tok[slot, 0] = tok
+                self._rngs[slot] = key
+                t, k, p = self.sampling_for(req)
+                self._temp[slot] = t
+                self._topk[slot] = k if k is not None else 0
+                self._topp[slot] = p if p is not None else 1.0
+                req.admitted_at = self.tick
+                req.status = RequestStatus.ACTIVE
+                self.slots[slot] = _Slot(req=req, pages=pages, emitted=[tok])
+                count += 1
+                self._maybe_finish(slot)
         return count
 
     def _prefill_fn(self, packed: torch.Tensor, length: int, start: int,
@@ -812,34 +822,45 @@ class ServingEngine:
     def step(self) -> int:
         """One scheduler event: fault/lifecycle servicing, admission, then
         ONE decode chunk.  Returns the requests admitted."""
+        with tracing.span("engine.step") as sp:
+            return self._step_phases(sp)
+
+    def _step_phases(self, sp) -> int:
+        """``step``'s body, in its phases' spans; ``sp`` is the step's."""
         self._step_progress = False
-        now = time.perf_counter()
-        for r in self.scheduler.waiting:
-            if r.arrival <= self.tick:
-                self.due_time.setdefault(r.rid, now)
-        if self.injector is not None:
-            self.injector.on_step_start(self)
-        self._verify_index()
-        self._service_cancels()
-        self._service_deadlines()
-        admitted = self._admit()
+        with tracing.span("engine.service"):
+            now = time.perf_counter()
+            for r in self.scheduler.waiting:
+                if r.arrival <= self.tick:
+                    self.due_time.setdefault(r.rid, now)
+            if self.injector is not None:
+                self.injector.on_step_start(self)
+            self._verify_index()
+            self._service_cancels()
+            self._service_deadlines()
+        with tracing.span("engine.admit"):
+            admitted = self._admit()
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             self.tick += 1
             return admitted
-        ticks = self._next_ticks(active)
-        self._cow_guard(active, ticks)
-        left = np.zeros((self.num_slots,), np.int32)
-        for i in active:
-            left[i] = self.slots[i].req.max_new - len(self.slots[i].emitted)
-        snap = self._snapshot()
+        sp.set_arg(len(active))
+        with tracing.span("engine.prepare"):
+            ticks = self._next_ticks(active)
+            self._cow_guard(active, ticks)
+            left = np.zeros((self.num_slots,), np.int32)
+            for i in active:
+                left[i] = self.slots[i].req.max_new - len(self.slots[i].emitted)
+            snap = self._snapshot()
+            packed_in = self._pack_inputs(left)
+            sampled = bool(np.any(self._temp > 0.0))
         started = False
         try:
-            if self.injector is not None:
-                self.injector.on_chunk_start(self, active, ticks)
-            started = True
-            packed = self._run_chunk(self._pack_inputs(left), ticks,
-                                     bool(np.any(self._temp > 0.0)))
+            with tracing.span("engine.chunk"):
+                if self.injector is not None:
+                    self.injector.on_chunk_start(self, active, ticks)
+                started = True
+                packed = self._run_chunk(packed_in, ticks, sampled)
         except GraphFailure:
             raise
         except Exception as err:
@@ -850,6 +871,13 @@ class ServingEngine:
             self._recover_chunk_failure(snap, err)
             self.tick += 1
             return admitted
+        with tracing.span("engine.commit"):
+            self._commit(packed, active, ticks)
+        return admitted
+
+    def _commit(self, packed: np.ndarray, active: List[int], ticks: int) -> None:
+        """A chunk's outputs back into the host mirrors and the slots:
+        emitted tokens, finished and quarantined rows retired."""
         self._consec_chunk_failures = 0
         self.sync_regions["decode_chunk"] += 1
         toks, counts, bad = packed[:ticks], packed[ticks], packed[ticks + 1]
@@ -872,7 +900,6 @@ class ServingEngine:
         self.decode_ticks += ticks
         self.tick += ticks
         self._count_chunk(ticks)
-        return admitted
 
     # -- observability -------------------------------------------------------
 

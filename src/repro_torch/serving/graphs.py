@@ -54,6 +54,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.analysis import runtime as analysis_runtime
 from repro_torch.kernels import _build
 
@@ -121,6 +122,11 @@ def capture(fn: Callable[[], Any], device: torch.device, pool,
     graph of ``pool``.  Returns (the eager run's result, the graph).
     The current stream waits for the eager run.  Raises
     :class:`GraphFailure`."""
+    with tracing.span("graphs.capture"):
+        return _capture_graph(fn, device, pool, what)
+
+
+def _capture_graph(fn, device, pool, what):
     t = [time.perf_counter()]
     analysis_runtime.count_compile()
     try:
@@ -197,6 +203,10 @@ class PackedGraphs:
         """Run variant ``variant`` on ``packed_in``; ``within()`` runs in
         the declared region after the transfer.  Returns (packed outputs
         on the host, what ``within`` returned or None)."""
+        with tracing.span("graphs.run", arg=self.region):
+            return self._run(packed_in, variant, within)
+
+    def _run(self, packed_in, variant, within):
         n = len(packed_in)
         self.host_in.numpy()[:n] = packed_in
         g = self.graphs.get(variant)
@@ -208,9 +218,13 @@ class PackedGraphs:
         stream = torch.cuda.current_stream(self.device)
         try:
             with _sync_debug_error():
-                self.static_in[:n].copy_(self.host_in[:n], non_blocking=True)
-                g.graph.replay()
-            with analysis_runtime.sync_region(self.region):
+                with tracing.span("graphs.upload"):
+                    self.static_in[:n].copy_(self.host_in[:n],
+                                             non_blocking=True)
+                with tracing.span("graphs.launch"):
+                    g.graph.replay()
+            with analysis_runtime.sync_region(self.region), \
+                    tracing.span("graphs.wait"):
                 with _sync_debug_error():
                     g.host_out.copy_(g.graph.out, non_blocking=True)
                 stream.synchronize()

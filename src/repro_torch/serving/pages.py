@@ -32,6 +32,8 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
+
 __all__ = ["NULL_PAGE", "PagePool", "PrefixIndex"]
 
 NULL_PAGE = 0
@@ -206,21 +208,22 @@ class PrefixIndex:
         the request will ever write (tail + decode) stays past the
         shared region, which is what makes COW unreachable on the
         standard path (DESIGN.md §12).  Hit entries are touched MRU."""
-        prompt = np.asarray(prompt).reshape(-1)
-        ps = self.pool.page_size
-        out: List[int] = []
-        keys: List[int] = []
-        key: Optional[int] = None
-        for i in range((len(prompt) - 1) // ps):
-            key = self._chain_key(key, prompt[i * ps:(i + 1) * ps])
-            entry = self._entries.get(key)
-            if entry is None:
-                break
-            out.append(entry.page)
-            keys.append(key)
-        for k in keys:
-            self._entries.move_to_end(k)
-        return out
+        with tracing.span("prefix.match"):
+            prompt = np.asarray(prompt).reshape(-1)
+            ps = self.pool.page_size
+            out: List[int] = []
+            keys: List[int] = []
+            key: Optional[int] = None
+            for i in range((len(prompt) - 1) // ps):
+                key = self._chain_key(key, prompt[i * ps:(i + 1) * ps])
+                entry = self._entries.get(key)
+                if entry is None:
+                    break
+                out.append(entry.page)
+                keys.append(key)
+            for k in keys:
+                self._entries.move_to_end(k)
+            return out
 
     def insert(self, prompt: np.ndarray, pages: Sequence[int]) -> int:
         """Register every full page-aligned block of ``prompt`` (block
@@ -228,28 +231,31 @@ class PrefixIndex:
         pool reference per newly indexed page.  Blocks already indexed
         (the request's own hits, or a same-content sibling) are touched
         MRU and skipped.  Returns the number of new entries."""
-        prompt = np.asarray(prompt).reshape(-1)
-        ps = self.pool.page_size
-        key: Optional[int] = None
-        new = 0
-        for i in range(len(prompt) // ps):
-            parent = key
-            key = self._chain_key(key, prompt[i * ps:(i + 1) * ps])
-            if key in self._entries:
-                self._entries.move_to_end(key)
-                continue
-            self._take(int(pages[i]))
-            self._entries[key] = _IndexEntry(page=int(pages[i]), parent=parent)
-            pe = self._entries.get(parent) if parent is not None else None
-            if pe is not None:
-                pe.children += 1
-            new += 1
-        return new
+        with tracing.span("prefix.insert"):
+            prompt = np.asarray(prompt).reshape(-1)
+            ps = self.pool.page_size
+            key: Optional[int] = None
+            new = 0
+            for i in range(len(prompt) // ps):
+                parent = key
+                key = self._chain_key(key, prompt[i * ps:(i + 1) * ps])
+                if key in self._entries:
+                    self._entries.move_to_end(key)
+                    continue
+                self._take(int(pages[i]))
+                self._entries[key] = _IndexEntry(page=int(pages[i]),
+                                                 parent=parent)
+                pe = self._entries.get(parent) if parent is not None else None
+                if pe is not None:
+                    pe.children += 1
+                new += 1
+            return new
 
     def evictable_pages(self, exclude: Iterable[int] = ()) -> int:
         """Pages the index could return to the pool right now: indexed
         pages nobody else holds (refcount 1) and not pinned by
         ``exclude`` (pages promised to this tick's other admissions)."""
+        tracing.count("prefix.evictable_scanned", len(self._entries))
         ex = set(exclude)
         return sum(1 for e in self._entries.values()
                    if self.pool.refcount(e.page) == 1 and e.page not in ex)
@@ -257,6 +263,10 @@ class PrefixIndex:
     def evict(self, n_pages: int, exclude: Iterable[int] = ()) -> int:
         """Drop LRU leaf entries until ``n_pages`` pages returned to the
         free list (or nothing evictable remains).  Returns pages freed."""
+        with tracing.span("prefix.evict"):
+            return self._evict(n_pages, exclude)
+
+    def _evict(self, n_pages: int, exclude: Iterable[int]) -> int:
         ex = set(exclude)
         freed = 0
         while freed < n_pages:
@@ -310,6 +320,11 @@ class PrefixIndex:
         cache via :meth:`clear` (ledger-exact, so no page leaks) and
         keeps serving uncached rather than mapping poisoned pages into
         new tables."""
+        tracing.count("prefix.entries_verified", len(self._entries))
+        with tracing.span("prefix.verify"):
+            return self._verify()
+
+    def _verify(self) -> List[str]:
         issues: List[str] = []
         counts: Dict[int, int] = {}
         actual_children: Dict[int, int] = {}

@@ -65,6 +65,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
+
 from .pages import PagePool, PrefixIndex
 
 __all__ = ["Request", "RequestStatus", "Scheduler", "TERMINAL_STATUSES"]
@@ -131,6 +133,7 @@ class Request:
     prefix_hit_pages: int = 0             # prefix-cache pages mapped at admit
     first_token_time: Optional[float] = None  # wall clock of first token
     finished_time: Optional[float] = None     # wall clock of terminal event
+    queued_ns: Optional[int] = None   # time.time_ns() at submit, while tracing
 
     @property
     def prompt_len(self) -> int:
@@ -301,6 +304,7 @@ class Scheduler:
         return req.priority - max(0, tick - req.arrival) // self.aging_ticks
 
     def _effective_head_index(self, tick: int) -> Optional[int]:
+        tracing.count("scheduler.waiting_scanned", len(self.waiting))
         best = None
         for i, r in enumerate(self.waiting):
             if r.arrival > tick:
@@ -337,6 +341,10 @@ class Scheduler:
         admitted either — skipping ahead to smaller requests would
         starve long prompts, the exact hazard aging exists to rule
         out."""
+        with tracing.span("scheduler.admit"):
+            return self._admit(tick, free_slots)
+
+    def _admit(self, tick: int, free_slots: int) -> List[Request]:
         out: List[Request] = []
         reserved = 0   # pages already committed to this tick's admissions
         pinned: set = set()

@@ -37,6 +37,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.masks import copy_tree_, map_tree
 from repro_torch.core.structures import iter_leaves
 from repro_torch.serving.graphs import (
@@ -63,11 +64,16 @@ def _layout(tree) -> Tuple:
                  for path, t in iter_leaves(tree))
 
 
+def _nbytes(tree) -> int:
+    return sum(t.nbytes for _, t in iter_leaves(tree))
+
+
 @dataclasses.dataclass
 class _Variant:
     graph: Captured
     state: Dict[str, Any]           # static: the body's state, in place
     batch: Dict[str, torch.Tensor]  # static
+    copy_bytes: int                 # copied in and out by one call
 
 
 class GraphedTrainStep:
@@ -91,16 +97,24 @@ class GraphedTrainStep:
 
     def __call__(self, state: Dict[str, Any], batch: Dict[str, torch.Tensor]
                  ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+        with tracing.span("train.step"):
+            return self._step(state, batch)
+
+    def _step(self, state, batch):
         key = (_layout(state), _layout(batch))
         v = self.variants.get(key)
         if v is None:
             return self._capture(key, state, batch)
+        tracing.count("train.copy_bytes", v.copy_bytes)
         try:
             with _sync_debug_error():
-                copy_tree_(v.state, state)
-                copy_tree_(v.batch, batch)
-                metrics = v.graph.replay()
-                return self._result(v.state, state), clone_tree(metrics)
+                with tracing.span("train.copy_in"):
+                    copy_tree_(v.state, state)
+                    copy_tree_(v.batch, batch)
+                with tracing.span("train.replay"):
+                    metrics = v.graph.replay()
+                with tracing.span("train.copy_out"):
+                    return self._result(v.state, state), clone_tree(metrics)
         except RuntimeError as err:
             raise GraphFailure(f"replay of {self.what} failed: {err}") from err
 
@@ -116,7 +130,12 @@ class GraphedTrainStep:
         first, graph = capture(lambda: self.body(static_state, static_batch),
                                self.device, self.pool,
                                f"{self.what} variant {len(self.variants)}")
-        self.variants[key] = _Variant(graph, static_state, static_batch)
+        # a replay copies the state and batch in, and the state less its
+        # masks and the metrics out
+        copied = (2 * _nbytes(static_state) + _nbytes(static_batch)
+                  - _nbytes(state.get("masks")) + _nbytes(graph.out))
+        self.variants[key] = _Variant(graph, static_state, static_batch, copied)
+        tracing.count("train.copy_bytes", copied)
         return self._result(static_state, state), first
 
     @staticmethod

@@ -39,6 +39,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.masks import apply_masks, map_tree, tree_leaves
 from repro_torch.distributed.sharding import is_dtensor, reduce_partial
@@ -60,11 +61,12 @@ __all__ = ["make_train_step", "make_train_body", "make_prefill_step",
 
 def init_train_state(params, opt_cfg: AdamWConfig, masks=None) -> Dict[str, Any]:
     dev = tree_leaves(params)[0].device
-    state = {
-        "params": params,
-        "opt": init_opt_state(params, opt_cfg),
-        "step": torch.zeros((), dtype=torch.int32, device=dev),
-    }
+    with tracing.span("train.init_state"):
+        state = {
+            "params": params,
+            "opt": init_opt_state(params, opt_cfg),
+            "step": torch.zeros((), dtype=torch.int32, device=dev),
+        }
     if masks is not None:
         state["masks"] = masks
     return state
