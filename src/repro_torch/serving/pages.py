@@ -26,9 +26,10 @@ page instead of corrupting a live sequence.
 """
 from __future__ import annotations
 
-import dataclasses
+import heapq
 from collections import OrderedDict
-from typing import Dict, Iterable, List, Optional, Sequence
+from collections.abc import Mapping
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -60,7 +61,9 @@ class PagePool:
         self.page_size = page_size
         # LIFO free list; page 0 (null) is never handed out
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
-        self._ref: List[int] = [0] * num_pages
+        # per-page counts: a memoryview of an int32 array, so one count
+        # reads as a Python int, and ``np.asarray`` gives the array whole
+        self._ref = memoryview(np.zeros(num_pages, np.int32))
         self.ref_high_water = 0   # max refcount any page ever reached
         self.cow_copies = 0       # copy-on-write page claims served
 
@@ -75,10 +78,14 @@ class PagePool:
     def refcount(self, pid: int) -> int:
         return self._ref[pid]
 
+    def refcounts(self, pages: np.ndarray) -> np.ndarray:
+        """Reference counts of the (valid) page ids in ``pages``."""
+        return np.asarray(self._ref)[pages]
+
     def live_refs(self) -> int:
         """Total outstanding references (a shared page counts once per
         table it appears in)."""
-        return sum(self._ref)
+        return int(np.asarray(self._ref).sum())
 
     def pages_for(self, num_tokens: int) -> int:
         """Pages needed to hold ``num_tokens`` cache slots."""
@@ -98,8 +105,7 @@ class PagePool:
             raise RuntimeError(
                 f"page pool exhausted: need {n}, have {len(self._free)}")
         out = [self._free.pop() for _ in range(n)]
-        for pid in out:
-            self._ref[pid] = 1
+        np.asarray(self._ref)[out] = 1
         if out and self.ref_high_water < 1:
             self.ref_high_water = 1
         return out
@@ -148,11 +154,70 @@ class PagePool:
                              "(double free?)")
 
 
-@dataclasses.dataclass
 class _IndexEntry:
-    page: int                 # physical page holding this block's K/V
-    parent: Optional[int]     # chain key of the previous block (None = root)
-    children: int = 0         # cached continuations (leaf iff 0)
+    """One index entry: a view onto its row of the index's arrays.  A view
+    stays bound to its row: once the entry leaves the index the row may
+    be reused."""
+    __slots__ = ("_idx", "row")
+
+    def __init__(self, idx: "PrefixIndex", row: int):
+        self._idx = idx
+        self.row = row
+
+    @property
+    def page(self) -> int:
+        """Physical page holding this block's K/V."""
+        return self._idx._page[self.row]
+
+    @page.setter
+    def page(self, pid: int) -> None:
+        self._idx._page[self.row] = pid
+
+    @property
+    def parent(self) -> Optional[int]:
+        """Chain key of the previous block (``None`` for a root)."""
+        if self._idx._root[self.row]:
+            return None
+        return self._idx._parent[self.row]
+
+    @parent.setter
+    def parent(self, key: Optional[int]) -> None:
+        self._idx._root[self.row] = key is None
+        if key is not None:
+            self._idx._parent[self.row] = key
+
+    @property
+    def children(self) -> int:
+        """Cached continuations (leaf iff 0)."""
+        return self._idx._children[self.row]
+
+    @children.setter
+    def children(self, n: int) -> None:
+        self._idx._children[self.row] = n
+
+
+class _Ledger(Mapping):
+    """Read-only ``page -> references held`` view of the index's ledger
+    arrays.  It iterates the pages it holds in the order they were taken,
+    as the dict it stands for did, so :meth:`PrefixIndex.clear` returns
+    pages to the pool's free list in the same order as ever."""
+
+    def __init__(self, counts: np.ndarray, taken: np.ndarray):
+        self._counts = counts
+        self._taken = taken
+
+    def __getitem__(self, page: int) -> int:
+        if (isinstance(page, (int, np.integer))
+                and 0 <= page < len(self._counts) and self._counts[page]):
+            return int(self._counts[page])
+        raise KeyError(page)
+
+    def __iter__(self) -> Iterator[int]:
+        pages = np.flatnonzero(self._counts)
+        return iter(pages[np.argsort(self._taken[pages])].tolist())
+
+    def __len__(self) -> int:
+        return int(np.count_nonzero(self._counts))
 
 
 class PrefixIndex:
@@ -185,16 +250,89 @@ class PrefixIndex:
     the cache instead of handing poisoned page ids to new tables.
     :meth:`drop_pages` quarantines entries touching a failed request's
     pages (plus their descendant chains) the same way.
+
+    **Storage.**  ``_entries`` maps chain keys, in LRU order, to views
+    onto rows of per-row columns (page, parent key and root flag, own
+    key, children, live, LRU stamp), recycled through a free list and
+    grown by doubling; the ledger is a per-page count column behind the
+    read-only ``_owned`` mapping.  A column is a memoryview of a numpy
+    array: one element reads as a Python int, and ``np.asarray`` gives
+    the array, so :meth:`verify`, :meth:`evictable_pages` and the victim
+    search of :meth:`evict` decide over every entry in a fixed number of
+    array passes, whatever the index holds.
     """
+
+    _COLUMNS = (("_page", np.int32), ("_parent", np.int64), ("_root", bool),
+                ("_key", np.int64), ("_children", np.int32), ("_live", bool),
+                ("_stamp", np.int64))
 
     def __init__(self, pool: PagePool):
         self.pool = pool
         self._entries: "OrderedDict[int, _IndexEntry]" = OrderedDict()
-        self._owned: Dict[int, int] = {}     # page -> refs this index holds
+        # per-row columns: ``_parent`` is the parent's chain key,
+        # ``_stamp`` the row's last use (LRU order)
+        for name, dtype in self._COLUMNS:
+            setattr(self, name, memoryview(np.zeros(64, dtype)))
+        self._clock = 0
+        self._top = 0                     # rows ever handed out since clear
+        self._free_rows: List[int] = []
+        # the ledger: refs this index holds per page, and when each held
+        # page was first taken (the order ``_owned`` iterates in)
+        self._owned_n = memoryview(np.zeros(pool.num_pages, np.int32))
+        self._owned_at = memoryview(np.zeros(pool.num_pages, np.int64))
+        self._takes = 0
+        self._owned = _Ledger(np.asarray(self._owned_n),
+                              np.asarray(self._owned_at))
         self.evictions = 0
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    # -- rows -----------------------------------------------------------------
+
+    def _new_entry(self, key: int, page: int,
+                   parent: Optional[int]) -> _IndexEntry:
+        if self._free_rows:
+            row = self._free_rows.pop()
+        else:
+            row = self._top
+            self._top += 1
+            if row == len(self._live):
+                for name, _ in self._COLUMNS:
+                    a = np.asarray(getattr(self, name))
+                    setattr(self, name, memoryview(
+                        np.concatenate([a, np.zeros_like(a)])))
+        self._key[row] = key
+        self._page[row] = page
+        self._children[row] = 0
+        self._live[row] = True
+        entry = _IndexEntry(self, row)
+        entry.parent = parent
+        self._entries[key] = entry
+        self._stamp_row(row)
+        return entry
+
+    def _stamp_row(self, row: int) -> None:
+        self._clock += 1
+        self._stamp[row] = self._clock
+
+    def _touch(self, key: int) -> None:
+        """Mark entry ``key`` most recently used."""
+        self._entries.move_to_end(key)
+        self._stamp_row(self._entries[key].row)
+
+    def _remove(self, key: int) -> Optional[_IndexEntry]:
+        """Drop entry ``key``: free its row, uncount it from its parent's
+        children and release its page by the ledger.  Returns the parent
+        entry, if the index holds it."""
+        row = self._entries.pop(key).row
+        self._live[row] = False
+        self._free_rows.append(row)
+        pe = None if self._root[row] else self._entries.get(self._parent[row])
+        if pe is not None:
+            self._children[pe.row] -= 1
+        self._release(self._page[row])
+        return pe
 
     @staticmethod
     def _chain_key(parent: Optional[int], block: np.ndarray) -> int:
@@ -222,7 +360,7 @@ class PrefixIndex:
                 out.append(entry.page)
                 keys.append(key)
             for k in keys:
-                self._entries.move_to_end(k)
+                self._touch(k)
             return out
 
     def insert(self, prompt: np.ndarray, pages: Sequence[int]) -> int:
@@ -240,11 +378,10 @@ class PrefixIndex:
                 parent = key
                 key = self._chain_key(key, prompt[i * ps:(i + 1) * ps])
                 if key in self._entries:
-                    self._entries.move_to_end(key)
+                    self._touch(key)
                     continue
                 self._take(int(pages[i]))
-                self._entries[key] = _IndexEntry(page=int(pages[i]),
-                                                 parent=parent)
+                self._new_entry(key, int(pages[i]), parent)
                 pe = self._entries.get(parent) if parent is not None else None
                 if pe is not None:
                     pe.children += 1
@@ -256,9 +393,19 @@ class PrefixIndex:
         pages nobody else holds (refcount 1) and not pinned by
         ``exclude`` (pages promised to this tick's other admissions)."""
         tracing.count("prefix.evictable_scanned", len(self._entries))
-        ex = set(exclude)
-        return sum(1 for e in self._entries.values()
-                   if self.pool.refcount(e.page) == 1 and e.page not in ex)
+        top = self._top
+        pages = np.asarray(self._page)[:top][np.asarray(self._live)[:top]]
+        return int(np.count_nonzero(self._unpinned(pages, set(exclude))))
+
+    def _unpinned(self, pages: np.ndarray, exclude: set) -> np.ndarray:
+        """Which of ``pages`` only the index holds (refcount 1) and
+        ``exclude`` leaves free; a page outside the pool never."""
+        n = self.pool.num_pages
+        ok = (pages > 0) & (pages < n)
+        pinned = np.zeros(n, bool)
+        pinned[[int(p) for p in exclude if 0 <= p < n]] = True
+        ok[ok] = (self.pool.refcounts(pages[ok]) == 1) & ~pinned[pages[ok]]
+        return ok
 
     def evict(self, n_pages: int, exclude: Iterable[int] = ()) -> int:
         """Drop LRU leaf entries until ``n_pages`` pages returned to the
@@ -267,41 +414,57 @@ class PrefixIndex:
             return self._evict(n_pages, exclude)
 
     def _evict(self, n_pages: int, exclude: Iterable[int]) -> int:
-        ex = set(exclude)
-        freed = 0
+        # Victims in LRU order: the evictable leaves as they stand, sorted
+        # by stamp once, merged with the parents the evictions leave one
+        # child fewer.  Each is checked again when its turn comes, so this
+        # picks what a scan from the LRU end would.  (A victim holds its
+        # page's only reference, so its release turns no other row's page
+        # evictable.)
+        n = self.pool.num_pages
+        exs = {int(p) for p in exclude}
+        top, stamp = self._top, np.asarray(self._stamp)
+        rows = np.flatnonzero(np.asarray(self._live)[:top]
+                              & (np.asarray(self._children)[:top] == 0))
+        rows = rows[self._unpinned(np.asarray(self._page)[rows], exs)]
+        rows = rows[np.argsort(stamp[rows])]
+        order = list(zip(stamp[rows].tolist(), rows.tolist()))
+        later: List = []           # (stamp, row): turned evictable meanwhile
+        page_of, live, children = self._page, self._live, self._children
+        i = freed = 0
         while freed < n_pages:
-            victim = None
-            for k, e in self._entries.items():       # OrderedDict: LRU first
-                if (e.children == 0 and e.page not in ex
-                        and self.pool.refcount(e.page) == 1):
-                    victim = k
-                    break
-            if victim is None:
+            if later and (i == len(order) or later[0] < order[i]):
+                row = heapq.heappop(later)[1]
+            elif i < len(order):
+                row = order[i][1]
+                i += 1
+            else:
                 break
-            entry = self._entries.pop(victim)
-            if entry.parent is not None:
-                pe = self._entries.get(entry.parent)
-                if pe is not None:
-                    pe.children -= 1
-            self._release(entry.page)
-            self.evictions += 1
+            page = page_of[row]
+            if not (live[row] and children[row] == 0 and 0 < page < n
+                    and self.pool.refcount(page) == 1 and page not in exs):
+                continue
+            parent = self._remove(self._key[row])
             freed += 1
+            if parent is not None:
+                heapq.heappush(later, (self._stamp[parent.row], parent.row))
+        self.evictions += freed
         return freed
 
     # -- reference ledger (fault-tolerant accounting) ----------------------
 
     def _take(self, page: int) -> None:
         self.pool.share([page])
-        self._owned[page] = self._owned.get(page, 0) + 1
+        if not self._owned_n[page]:
+            self._takes += 1
+            self._owned_at[page] = self._takes
+        self._owned_n[page] += 1
 
     def _release(self, page: int) -> None:
         """Release one index reference *if the ledger holds one* — the
         ledger, not the (possibly corrupted) entry field, decides what
         may be freed, so a scrambled entry can never double-free."""
-        if self._owned.get(page, 0) > 0:
-            self._owned[page] -= 1
-            if not self._owned[page]:
-                del self._owned[page]
+        if 0 <= page < len(self._owned_n) and self._owned_n[page] > 0:
+            self._owned_n[page] -= 1
             self.pool.free([page])
 
     def verify(self) -> List[str]:
@@ -316,13 +479,45 @@ class PrefixIndex:
         * every non-root parent link resolves to an existing entry,
         * stored ``children`` counts match the actual link structure.
 
+        Every entry is checked on every call, by :meth:`_consistent`'s
+        array passes; only when they find a fault does the per-entry
+        :meth:`_verify` run, to word the report (counted as
+        ``prefix.verify_worded``).
+
         The engine runs this each step; on any report it drops the whole
         cache via :meth:`clear` (ledger-exact, so no page leaks) and
         keeps serving uncached rather than mapping poisoned pages into
         new tables."""
         tracing.count("prefix.entries_verified", len(self._entries))
         with tracing.span("prefix.verify"):
-            return self._verify()
+            healthy = self._consistent()
+            tracing.count("prefix.verify_worded", int(not healthy))
+            return [] if healthy else self._verify()
+
+    def _consistent(self) -> bool:
+        """:meth:`verify`'s invariants over every live row at once."""
+        rows = np.flatnonzero(np.asarray(self._live)[:self._top])
+        if rows.size != len(self._entries):
+            return False
+        n = self.pool.num_pages
+        pages = np.asarray(self._page)[rows]
+        if rows.size and (pages.min() < 1 or pages.max() >= n):
+            return False                          # an invalid or null page
+        if not (self.pool.refcounts(pages) >= 1).all():
+            return False                          # an unreferenced page
+        if not np.array_equal(np.bincount(pages, minlength=n),
+                              np.asarray(self._owned_n)):
+            return False                          # pages != the ledger
+        children = np.asarray(self._children)[rows]
+        parents = np.asarray(self._parent)[rows[~np.asarray(self._root)[rows]]]
+        if children.min(initial=0) < 0 or children.sum() != parents.size:
+            return False                          # counts != the links
+        # every key repeated as often as it counts children: the parent
+        # keys exactly, as multisets, iff no link dangles and every
+        # children count is right
+        keys = np.asarray(self._key)[rows]
+        return np.array_equal(np.sort(np.repeat(keys, children)),
+                              np.sort(parents))
 
     def _verify(self) -> List[str]:
         issues: List[str] = []
@@ -370,11 +565,7 @@ class PrefixIndex:
                     doomed.add(k)
                     grew = True
         for k in doomed:
-            e = self._entries.pop(k)
-            pe = self._entries.get(e.parent) if e.parent is not None else None
-            if pe is not None:
-                pe.children -= 1
-            self._release(e.page)
+            self._remove(k)
         return len(doomed)
 
     def clear(self) -> int:
@@ -386,8 +577,10 @@ class PrefixIndex:
         n = len(self._entries)
         for page, cnt in list(self._owned.items()):
             self.pool.free([page] * cnt)
-        self._owned.clear()
+        np.asarray(self._owned_n)[:] = 0
         self._entries.clear()
+        self._top = 0                     # every row free again
+        self._free_rows.clear()
         return n
 
     def stats(self) -> Dict[str, int]:
