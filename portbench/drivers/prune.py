@@ -16,7 +16,9 @@ and closes at the end of the first iteration that ends past
 End to end: ``train_tok_s``, the tokens of every fine-tune step of the
 window over the window's seconds (knapsack, eval and fresh state
 inside).  The traced span of a ``--trace 1`` run runs from
-``trace_from`` of the window (at a step's boundary) to its close.
+``trace_from`` of the window (at a step's boundary) to its close, and
+the port's own tracer records over the whole of ``pruner.run`` into the
+record's ``"program"``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from portbench import generate, program, serving
 from portbench.reference import train as train_ref
+from portbench.spec import reference
 
 
 class _Closed(Exception):
@@ -108,10 +111,10 @@ def run(spec, seed, seconds, trace, device, hooks=None):
     from portbench.trace import Trace
     hooks = hooks or {}
     cfg, job = spec["config"], spec["traffic"]
-    ref = serving.reference(cfg)
+    ref = reference(cfg)
     build_s = program.build_kernels(device)
     weights = ref.make_weights(cfg, seed, device)
-    params = program.params_tree(weights, cfg)
+    params = ref.params_tree(weights, cfg)
     model_cfg = program.port_config(cfg)
     batches = make_batches(job, cfg["vocab_size"], seed, device)
     if "fault" in hooks:
@@ -167,12 +170,18 @@ def run(spec, seed, seconds, trace, device, hooks=None):
         return v
 
     pruner.prune_step = timed_prune_step
+    recorded = None
     gc.freeze()
     t0 = time.perf_counter()
+    if trace:
+        program.tracer_on()
     try:
         pruner.run(params, finetune_fn, eval_fn)
     except _Closed:
         pass
+    finally:
+        if trace:
+            recorded = program.tracer_off()
     if clock["t_end"] is None:
         clock["t_end"] = time.perf_counter()
     gc.unfreeze()
@@ -180,7 +189,8 @@ def run(spec, seed, seconds, trace, device, hooks=None):
         tracer.stop()
     window_s = clock["t_end"] - t0
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    reduced = tracer.reduce() if tracer is not None and tracer.t_stop else None
+    reduced = (tracer.reduce(recorded["spans"])
+               if tracer is not None and tracer.t_stop else None)
     stats = a2["fstep"].stats() if hasattr(a2["fstep"], "stats") else {}
     pool = a2["fstep"].pool_bytes() if hasattr(a2["fstep"], "pool_bytes") else None
     del a2, pruner, params, tracer
@@ -217,7 +227,7 @@ def run(spec, seed, seconds, trace, device, hooks=None):
         control = {"checks": ctl_checks, "correct": serving.passed(ctl_checks)}
     record = {"cfg": cfg, "job": job, "window_s": window_s, "trace": reduced,
               "steps": clock["steps"], "traced_steps": clock["traced_steps"],
-              "knapsack_s": clock["knapsack_s"]}
+              "knapsack_s": clock["knapsack_s"], "program": recorded}
     return {"end_to_end": {"train_tok_s": clock["steps"] * tok_per_step / window_s},
             "record": record, "attempted": clock["steps"], "failed": 0,
             "checks": checks, "correct": serving.passed(checks),

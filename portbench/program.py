@@ -3,19 +3,20 @@
 
 The harness reaches the port through this module (and the faults it
 plants, ``faults.py``).  It turns a configuration file into the port's
-``ModelConfig``, hands the benchmark's weights to the port as its params
-tree, prunes and packs them through the port's serving path
-(``sparse.knapsack_prune`` then ``sparse.pack_params``, as
-``launch.serve.build_params`` does), builds the port's
-``ServingEngine``, and builds what ``launch.train.prune`` builds for
-Algorithm 2 (:func:`algorithm2`).
+``ModelConfig``, prunes and packs the params tree that the
+configuration's reference lays the benchmark's weights out as, through
+the port's serving path (``sparse.knapsack_prune`` then
+``sparse.pack_params``, as ``launch.serve.build_params`` does), builds
+the port's ``ServingEngine``, builds what ``launch.train.prune`` builds
+for Algorithm 2 (:func:`algorithm2`), and turns the port's own tracer
+(``repro_torch.tracing``) on and off around a traced run's window.
 """
 from __future__ import annotations
 
 import sys
 from typing import Dict, Tuple
 
-from .spec import ROOT
+from .spec import PLAN_KEYS, ROOT, layer_plan
 
 # configuration-file key -> the port's ModelConfig field
 FIELDS = {
@@ -33,8 +34,27 @@ FIELDS = {
     "param_dtype": "param_dtype",
     "activ_dtype": "activ_dtype",
     "capacity_factor": "capacity_factor",
+    "num_experts": "moe_experts",
+    "head_dim": "head_dim",
+    "use_rope": "use_rope",
+    "sliding_window": "window",
+    "mamba_d_state": "d_state",
+    "mamba_d_conv": "d_conv",
 }
 PORT_RMS_EPS = 1e-6       # models/layers.rmsnorm's eps
+# sizes the port fixes by a rule of its own (models/mamba.py mamba_init):
+# configuration-file key -> the size the rule gives for hidden size d
+FIXED = {
+    "mamba_expand": lambda d: 2,
+    "mamba_dt_rank": lambda d: max(d // 16, 1),
+}
+# numbers of a configuration file that are no size of the port's model:
+# key -> what the harness does with it
+READ = {
+    "rms_norm_eps": "checked against the port's RMSNorm eps",
+    "max_position_embeddings": "a bound the traffic's lengths stay within",
+    "num_logits_to_keep": "the engine keeps the last position's logits only",
+}
 
 
 def import_port():
@@ -47,38 +67,42 @@ def import_port():
 def port_config(cfg: Dict):
     """The port's ModelConfig of configuration file ``cfg``: the port's
     own entry for ``cfg["port_arch"]`` with every size of the file (and
-    each assumed size) set on it."""
+    each assumed size) set on it.  A file without ``use_rope`` keeps
+    RoPE.  Raises where the file states a size the port has no field
+    for (a number other than 0, at the top level or under ``assumed``,
+    that no key of :data:`FIELDS`, :data:`FIXED`,
+    :data:`~portbench.spec.PLAN_KEYS` or :data:`READ` names), or one that
+    differs from a rule the port fixes (:data:`FIXED`),
+    and where the entry's layers (``layer_specs``) differ, layer by
+    layer, from the file's :func:`~portbench.spec.layer_plan`: the
+    entry's mixer and MLP patterns are the port's, and a file cannot
+    make the port run a stack that no entry of it ships."""
     import_port()
     from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_specs
     if float(cfg["rms_norm_eps"]) != PORT_RMS_EPS:
         raise ValueError(f"the port's RMSNorm eps is {PORT_RMS_EPS}, the "
                          f"configuration states {cfg['rms_norm_eps']}")
     sizes = {**cfg, **cfg.get("assumed", {})}
+    known = {*FIELDS, *FIXED, *PLAN_KEYS, *READ}
+    stated = [key for key, v in sizes.items() if key not in known
+              and isinstance(v, (int, float)) and not isinstance(v, bool) and v]
+    if stated:
+        raise ValueError(f"the port has no field for {stated}")
+    for key, rule in FIXED.items():
+        if key in sizes and sizes[key] != rule(sizes["hidden_size"]):
+            raise ValueError(f"the port fixes {key} at {rule(sizes['hidden_size'])}, "
+                             f"the configuration states {sizes[key]}")
     kw = {field: sizes[key] for key, field in FIELDS.items() if key in sizes}
-    return get_config(cfg["port_arch"]).replace(**kw)
-
-
-def params_tree(w: Dict, cfg: Dict) -> Dict:
-    """The port's params tree over the benchmark's stacked weights ``w``
-    (views, nothing copied)."""
-    layers = []
-    for l in range(cfg["num_hidden_layers"]):
-        attn = {name: {"kernel": w[name][l]} for name in ("wq", "wk", "wv", "wo")}
-        for name in ("q", "k", "v"):
-            if f"b{name}" in w:
-                attn[f"w{name}"]["bias"] = w[f"b{name}"][l]
-        layer = {"pre_norm": {"scale": w["pre_norm"][l]}, "attn": attn,
-                 "post_norm": {"scale": w["post_norm"][l]}}
-        if "router" in w:
-            layer["moe"] = {"router": {"kernel": w["router"][l]},
-                            **{k: w[k][l] for k in ("experts_up", "experts_gate",
-                                                    "experts_down")}}
-        else:
-            layer["mlp"] = {k: {"kernel": w[k][l]}
-                            for k in ("w_up", "w_gate", "w_down")}
-        layers.append(layer)
-    return {"embed": {"embedding": w["embed"]}, "layers": layers,
-            "final_norm": {"scale": w["final_norm"]}}
+    model_cfg = get_config(cfg["port_arch"]).replace(**kw)
+    ported = [(s.mixer, s.mlp) for s in layer_specs(model_cfg)]
+    plan = layer_plan(cfg)
+    if ported != plan:
+        wrong = [i for i, (a, b) in enumerate(zip(ported, plan)) if a != b]
+        raise ValueError(f"the port's {cfg['port_arch']} runs layers "
+                         f"{ported}, the configuration states {plan} (they "
+                         f"differ at layers {wrong or 'count'})")
+    return model_cfg
 
 
 def pack(params: Dict, cfg: Dict) -> Tuple[Dict, Dict]:
@@ -118,6 +142,22 @@ def build_kernels(device) -> float:
     import_port()
     from repro_torch.kernels import _build
     return _build.build_all()
+
+
+def tracer_on() -> None:
+    """The port's tracer on, with nothing recorded before."""
+    import_port()
+    from repro_torch import tracing
+    tracing.drain()
+    tracing.enable()
+
+
+def tracer_off() -> Dict:
+    """The port's tracer off; what it recorded since :func:`tracer_on`
+    (``{"spans": [...], "counters": {...}}``)."""
+    from repro_torch import tracing
+    tracing.disable()
+    return tracing.drain()
 
 
 def leaf_name(path: str) -> str:

@@ -1,39 +1,34 @@
 #!/usr/bin/env python3
-"""A traced run of one cell with the program's own spans and counters
-(``repro_torch.tracing``) recorded over the window::
+"""The program's own spans and counters (``repro_torch.tracing``) in a
+traced run, and what is read from them.
+
+Every ``run.py --trace 1`` run records them over its window (the serving
+meter's ``open_window``/``close_window``; Algorithm 2's ``pruner.run``)
+into the run's record under ``"program"``; ``trace.py`` reduces the
+device's idle by program span beside the harness's own table, and the
+per-layer metrics ``metrics/<name>.py`` that read the spans call the
+arithmetic here.  :func:`summary` and :func:`notes` give a traced run's
+notes (standard error)::
+
+* spans and counters over the window, by name and per engine step;
+* each engine phase's host ms per chunk, and the program's phases
+  against the harness's outside meters (``chunk_host_ms``,
+  ``knapsack_s``) of the same run;
+* each span name's calls, host seconds and the device idle inside its
+  own intervals, over the traced span (``trace.own_time``);
+* how the program's ``engine.step`` spans pair with the harness's
+  ``portbench.engine.step`` spans of the traced span
+  (``trace.step_pairing``): on one clock one to one, each program step
+  starting a few us after its harness step and ending before it.
+
+As a command it is ``run.py --trace 1`` whose notes also go, with
+``--out DIR``, to ``DIR/<cell>-<seed>.json``::
 
     python3 portbench/programspans.py --workload <cell> --seed <n> --seconds <s> [--out DIR]
-
-from the root of a checkout, on the card.  It is ``run.py --trace 1``
-with the program's tracer turned on at the window's open and drained at
-its close (the serving meter's ``open_window``/``close_window``;
-Algorithm 2's ``IterativePruner.run``), the drained spans and counters
-put into the run's record under ``"program"``, and the metrics of
-:data:`METRICS` read from them beside the cell's own per-layer metrics.
-Its notes (standard error) add:
-
-* the device's idle gaps of the traced span by the innermost program
-  span around each gap's middle (``request.queue``, a wait rather than
-  host work, left out), beside the harness's own table;
-* how the program's ``engine.step`` spans pair with the harness's
-  ``portbench.engine.step`` spans (count and start offsets);
-* idle in ``engine.step`` outside its five phases, or outside every
-  program span, as a share of the idle seconds;
-* the program's phases against the harness's outside meters
-  (``chunk_host_ms``, ``knapsack_s``) of the same run;
-* spans and counters per window step.
-
-With ``--out DIR`` the notes' numbers also go to
-``DIR/<cell>-<seed>.json``.  The hooks are attached from outside, so the
-harness's files stay as they are; :func:`hooked` is the same wiring for
-the CPU tests.
 """
 from __future__ import annotations
 
-import bisect
-import contextlib
 import json
-import statistics
 import sys
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -42,41 +37,12 @@ HERE = Path(__file__).resolve().parent
 if str(HERE.parent) not in sys.path:
     sys.path.insert(0, str(HERE.parent))
 
-from portbench import program  # noqa: E402
 from portbench import spec as spec_mod  # noqa: E402
 from portbench import trace as trace_mod  # noqa: E402
+from portbench.trace import QUEUE  # noqa: E402,F401  (the readers' name for it)
 
-OUTSIDE = "outside every program span"
-QUEUE = "request.queue"
 PHASES = ("engine.service", "engine.admit", "engine.prepare", "engine.chunk",
           "engine.commit")
-_ENGINE = "engine: serving/engine.py"
-
-# the per-layer metrics read from the program's spans and counters, as
-# BENCHMARK.json's "per_layer" entries would hold them
-METRICS: List[Dict] = [
-    {"name": "queue_wait_ms.chat", "unit": "ms", "better": "lower",
-     "source": "host_clock", "layer": _ENGINE, "moves": "ttft_p95_ms",
-     "workloads": ["qwen-chat"]},
-    {"name": "service_host_ms.chat", "unit": "ms", "better": "lower",
-     "source": "host_clock", "layer": _ENGINE, "moves": "tpot_p95_ms",
-     "workloads": ["qwen-chat"]},
-    {"name": "service_host_ms.backlog", "unit": "ms", "better": "lower",
-     "source": "host_clock", "layer": _ENGINE, "moves": "serve_tok_s",
-     "workloads": ["granite-backlog"]},
-    {"name": "commit_host_ms.backlog", "unit": "ms", "better": "lower",
-     "source": "host_clock", "layer": _ENGINE, "moves": "serve_tok_s",
-     "workloads": ["granite-backlog"]},
-    {"name": "verify_entries.chat", "unit": "entries", "better": "lower",
-     "source": "program_counter", "layer": _ENGINE, "moves": "tpot_p95_ms",
-     "workloads": ["qwen-chat"]},
-    {"name": "eval_s.prune", "unit": "s", "better": "lower",
-     "source": "host_clock", "layer": "pruner: core/pruner.py and core/knapsack.py",
-     "moves": "train_tok_s", "workloads": ["qwen-prune"]},
-    {"name": "train_copy_gb.prune", "unit": "GB", "better": "lower",
-     "source": "program_counter", "layer": "train step: train/graphs.py",
-     "moves": "train_tok_s", "workloads": ["qwen-prune"]},
-]
 
 
 # -- the readers' arithmetic -----------------------------------------------
@@ -123,90 +89,23 @@ def train_copy_gb(rec: Dict) -> Optional[float]:
     return None if v is None else v / 1e9
 
 
-# -- the idle gaps by program span -------------------------------------------
+# -- a traced run's notes ----------------------------------------------------
 
 def busy_intervals(events) -> List[List[int]]:
     """The merged intervals of the device operations among
     ``(name, start_ns, end_ns, on_device)`` events, as
-    ``trace.reduce_events`` counts them."""
-    dev = sorted((s, t) for name, s, t, on_device in events
-                 if on_device and not name.startswith("portbench.")
-                 and not name.startswith(trace_mod.ANNOTATIONS))
-    merged: List[List[int]] = []
-    for s, t in dev:
-        if merged and s <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], t)
-        else:
-            merged.append([s, t])
-    return merged
-
-
-def innermost(spans, at: int, starts=None) -> Optional[int]:
-    """Index of the innermost closed span (``request.queue`` aside)
-    around instant ``at``: the last one started by then, or the first of
-    its parents that still holds it.  ``starts``: the sorted
-    ``(start, index)`` of those spans, when called many times."""
-    if starts is None:
-        starts = sorted((s[1], i) for i, s in enumerate(spans)
-                        if s[0] != QUEUE and s[2] > 0)
-    j = bisect.bisect_right(starts, (at, len(spans))) - 1
-    i = starts[j][1] if j >= 0 else -1
-    while i >= 0 and not spans[i][1] <= at <= spans[i][2]:
-        i = spans[i][3]
-    return i if i >= 0 else None
-
-
-def program_gaps(events, spans, window_s: float) -> Dict[str, float]:
-    """Seconds of device idle between the traced span's busy intervals,
-    by the innermost program span around each gap's middle; the rest of
-    the window (before the first and after the last operation) apart."""
-    merged = busy_intervals(events)
-    starts = sorted((s[1], i) for i, s in enumerate(spans)
-                    if s[0] != QUEUE and s[2] > 0)
-    out: Dict[str, float] = {}
-    for (_, a), (b, _) in zip(merged, merged[1:]):
-        i = innermost(spans, (a + b) // 2, starts)
-        label = OUTSIDE if i is None else spans[i][0]
-        out[label] = out.get(label, 0.0) + (b - a) / 1e9
-    busy = sum(t - s for s, t in merged) / 1e9
-    edges = window_s - busy - sum(out.values())
-    if edges > 0:
-        out["before the first or after the last device op"] = edges
-    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
-
-
-def step_offsets(events, spans) -> Dict:
-    """The harness's ``portbench.engine.step`` host spans against the
-    program's ``engine.step`` spans: each harness span paired with the
-    program span that starts nearest, whether the pairing is one to
-    one, and the offsets in us (program start less harness start, the
-    median and largest absolute ones; harness end less program end):
-    on one clock both are small and not negative."""
-    outer = sorted((s, t) for name, s, t, on_device in events
-                   if name == "portbench.engine.step" and not on_device)
-    inner = sorted((s[1], s[2]) for s in spans if s[0] == "engine.step")
-    if not outer or not inner:
-        return {"harness": len(outer), "program": len(inner)}
-    starts = [s for s, _ in inner]
-    offs, ends, used = [], [], set()
-    for s, t in outer:
-        j = bisect.bisect_left(starts, s)
-        near = min((k for k in (j - 1, j) if 0 <= k < len(inner)),
-                   key=lambda k: abs(starts[k] - s))
-        used.add(near)
-        offs.append((starts[near] - s) / 1e3)
-        ends.append((t - inner[near][1]) / 1e3)
-    ab = [abs(o) for o in offs]
-    return {"harness": len(outer), "paired": len(used),
-            "one_to_one": len(used) == len(outer),
-            "median_abs_us": statistics.median(ab), "max_abs_us": max(ab),
-            "median_us": statistics.median(offs),
-            "median_end_us": statistics.median(ends), "min_end_us": min(ends)}
+    ``trace.reduce_events`` counts them (``scripts/span_own_time.py``
+    reads them through this)."""
+    return trace_mod.merge((s, t) for name, s, t, on_device in events
+                           if on_device and not name.startswith("portbench.")
+                           and not name.startswith(trace_mod.ANNOTATIONS))
 
 
 def summary(rec: Dict, events=None) -> Dict:
-    """The notes' numbers for one run's record (and its trace's raw
-    events, where the run was traced)."""
+    """The notes' numbers for one traced run's record.  The own-time
+    table and the step pairing are the record's reduced trace's; the
+    own-time table is worked out from the traced span's raw ``events``
+    where they are given."""
     p = rec["program"]
     spans = p["spans"]
     steps = len(_spans(rec, "engine.step"))
@@ -232,107 +131,22 @@ def summary(rec: Dict, events=None) -> Dict:
         out["knapsack_s"] = {"program": mean_s(rec, "pruner.knapsack"),
                              "meter": sum(rec["knapsack_s"]) / len(rec["knapsack_s"])}
     t = rec.get("trace")
-    if events is not None and t:
-        gaps = program_gaps(events, spans, t["window_s"])
-        idle = t["window_s"] - t["busy_s"]
-        edge = gaps.get("before the first or after the last device op", 0.0)
-        out["idle_gaps"] = gaps
-        out["idle_s"] = idle
-        out["uncovered_share"] = {
-            "engine.step outside its phases": gaps.get("engine.step", 0.0) / idle,
-            OUTSIDE: gaps.get(OUTSIDE, 0.0) / max(idle - edge, 1e-12)}
-        out["step_offsets"] = step_offsets(events, spans)
+    if events is not None:
+        out["own_time"] = trace_mod.own_time(spans, busy_intervals(events))
+    elif t and "program" in t:
+        out["own_time"] = t["program"]
+    if t and "step_pairing" in t:
+        out["step_pairing"] = t["step_pairing"]
+    if t:
+        out["idle_s"] = t["window_s"] - t["busy_s"]
     return out
-
-
-# -- the wiring ----------------------------------------------------------------
-
-@contextlib.contextmanager
-def hooked():
-    """Inside the block, a cell's driver run (through ``spec.driver``)
-    records the program's spans and counters over its window into
-    ``record["program"]``, adds :func:`summary`'s notes, and the cell's
-    per-layer metrics include those of :data:`METRICS` that list it."""
-    from unittest import mock
-
-    program.import_port()
-    from repro_torch import tracing
-    from repro_torch.core.pruner import IterativePruner
-
-    from portbench import serving
-    state: Dict = {}
-    open_window, close_window = serving.Meter.open_window, serving.Meter.close_window
-    pruner_run, reduce_events = IterativePruner.run, trace_mod.reduce_events
-    driver, load_cell = spec_mod.driver, spec_mod.load_cell
-
-    def begin():
-        tracing.drain()
-        tracing.enable()
-
-    def end():
-        tracing.disable()
-        state["program"] = tracing.drain()
-
-    def traced_open(meter):
-        open_window(meter)
-        begin()
-
-    def traced_close(meter):
-        end()
-        close_window(meter)
-
-    def traced_pruner_run(pruner, *a, **kw):
-        begin()
-        try:
-            return pruner_run(pruner, *a, **kw)
-        finally:
-            end()
-
-    def keep_events(events, window_s):
-        state["events"] = events
-        return reduce_events(events, window_s)
-
-    def traced_driver(name):
-        mod = driver(name)
-        inner = mod.run
-
-        def run(*a, **kw):
-            out = inner(*a, **kw)
-            rec = out["record"]
-            rec["program"] = state.pop("program")
-            state["summary"] = summary(rec, state.pop("events", None))
-            out["notes"].extend(notes(state["summary"]))
-            return out
-
-        mod.run = run
-        return mod
-
-    def with_metrics(name, *a, **kw):
-        cell = load_cell(name, *a, **kw)
-        cell["per_layer"] = cell["per_layer"] + [
-            m for m in METRICS if name in m["workloads"]]
-        return cell
-
-    with contextlib.ExitStack() as stack:
-        for obj, attr, new in ((serving.Meter, "open_window", traced_open),
-                               (serving.Meter, "close_window", traced_close),
-                               (IterativePruner, "run", traced_pruner_run),
-                               (trace_mod, "reduce_events", keep_events),
-                               (spec_mod, "driver", traced_driver),
-                               (spec_mod, "load_cell", with_metrics)):
-            stack.enter_context(mock.patch.object(obj, attr, new))
-        try:
-            yield state
-        finally:
-            tracing.disable()
-            tracing.drain()
 
 
 def notes(s: Dict) -> List[str]:
     out = [f"program spans: {s['spans']} over the window, by name {s['by_name']}; "
            f"counters {s['counters']}"]
     for key in ("per_step", "phase_ms_per_chunk", "outside_admit_and_chunk_ms",
-                "knapsack_s", "idle_gaps", "uncovered_share", "step_offsets"):
+                "knapsack_s", "idle_s", "step_pairing", "own_time"):
         if key in s:
             out.append(f"program {key}: {s[key]}")
     return out
@@ -347,13 +161,13 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     run = spec_mod.load_module(HERE / "run.py", "portbench_run_entry")
-    with hooked() as state:
-        rc = run.main(["--workload", args.workload, "--seed", str(args.seed),
-                       "--seconds", str(args.seconds), "--trace", "1"])
-    if args.out is not None and "summary" in state:
+    kept: Dict = {}
+    rc = run.main(["--workload", args.workload, "--seed", str(args.seed),
+                   "--seconds", str(args.seconds), "--trace", "1"], keep=kept)
+    if args.out is not None and "record" in kept:
         args.out.mkdir(parents=True, exist_ok=True)
         with open(args.out / f"{args.workload}-{args.seed}.json", "w") as f:
-            json.dump(state["summary"], f, indent=1)
+            json.dump(summary(kept["record"]), f, indent=1)
     return rc
 
 

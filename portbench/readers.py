@@ -4,7 +4,7 @@ returns its number, or None where the run holds nothing to read."""
 from __future__ import annotations
 
 import sys
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from . import roofline
 from .trace import kernel_seconds
@@ -43,8 +43,8 @@ def serve_mfu(rec: Dict) -> Optional[float]:
     tokens) fill over the window's seconds."""
     f, cfg = rec["flops_in"], rec["cfg"]
     flops = roofline.model_flops(
-        cfg, rec["live"], f["decode_tokens"] + f["prefill_tokens"],
-        f["decode_contexts"] + f["prefill_contexts"])
+        cfg, rec["plan"], rec["live"], f["decode_tokens"] + f["prefill_tokens"],
+        f["decode_contexts"] + f["prefill_contexts"], **rec["per_token"])
     if not rec["window_s"] or flops <= 0:
         return None
     return 100.0 * flops / (rec["window_s"] * roofline.PEAK_FLOPS[cfg["param_dtype"]])
@@ -65,29 +65,21 @@ def paged_decode_roofline(rec: Dict) -> Optional[float]:
     return roofline.share(rec["traced"]["decode_least_s"], secs)
 
 
-def planes_roofline(rec: Dict) -> Optional[float]:
-    """% of the planes kernel's traced device time that its counted work
-    needs at least: each decode tick's and each admission's up, gate (its
-    multiplier read too) and down products over every expert's live
-    tiles, with ``top-k`` rows per token routed (no drops)."""
-    t, cfg = rec.get("trace"), rec["cfg"]
-    if not t or not cfg.get("num_local_experts"):
-        return None
-    tr = rec["traced"]
-    layers, e_n, k = (cfg["num_hidden_layers"], cfg["num_local_experts"],
-                      cfg["num_experts_per_tok"])
+def planes_calls(rec: Dict) -> Tuple[int, float]:
+    """The planes kernel's calls over the traced span, and the least
+    seconds they need: at each decode tick and each admission, in every
+    MoE layer, the up, gate (its multiplier read too) and down products
+    over every expert's live tiles, with ``top-k`` rows per token routed
+    (no drops)."""
+    cfg, plan, tr = rec["cfg"], rec["plan"], rec["traced"]
+    layers, e_n, k = plan["moe"], plan["experts"], cfg["num_experts_per_tok"]
     d, f = cfg["hidden_size"], cfg["intermediate_size"]
     tile = int(cfg["pruning"]["block"][0])
     act = cfg["activ_dtype"]
     live = {kind: n // (layers * e_n) for kind, n in rec["live_tiles"].items()
             if kind.startswith("experts")}
-    secs, calls = kernel_seconds(t, "bsr_planes_kernel")
     rows_per_call = [rec["num_slots"] * k] * tr["ticks"] + \
         [length * k for length, _ in tr["admissions"]]
-    if calls != 3 * layers * len(rows_per_call):
-        _say(f"planes: {calls} kernels traced, {3 * layers * len(rows_per_call)} "
-             "calls counted")
-        return None
     least = 0.0
     for rows in rows_per_call:
         for kind, kk, nn, extra in (("experts_up", d, f, 0),
@@ -97,6 +89,20 @@ def planes_roofline(rec: Dict) -> Optional[float]:
                                           act=act, weight=cfg["param_dtype"],
                                           extra_in=extra)
             least += layers * roofline.least_seconds(nb, fl, act)
+    return 3 * layers * len(rows_per_call), least
+
+
+def planes_roofline(rec: Dict) -> Optional[float]:
+    """% of the planes kernel's traced device time that its counted work
+    needs at least (:func:`planes_calls`)."""
+    t = rec.get("trace")
+    if not t or not rec["plan"]["moe"]:
+        return None
+    secs, calls = kernel_seconds(t, "bsr_planes_kernel")
+    want, least = planes_calls(rec)
+    if calls != want:
+        _say(f"planes: {calls} kernels traced, {want} calls counted")
+        return None
     return roofline.share(least, secs)
 
 

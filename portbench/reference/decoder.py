@@ -19,6 +19,10 @@ makes for them.  It imports nothing of ``repro_torch`` or ``repro``.
   token computed: no capacity), tied unembedding.
 * :func:`quantized` is the control: the same weights rounded to fp8
   e4m3 with one scale per matrix.
+* :func:`params_tree` lays the weights out as the port's params tree,
+  which the harness hands to the port; :func:`dense_weights_per_token`
+  and :func:`other_flops_per_token` give the model FLOPs' terms that the
+  layer plan cannot (``roofline.model_flops``).
 
 Departures from the published models are the port's, listed in each
 configuration file under ``departures``.
@@ -31,7 +35,8 @@ from typing import Dict, List, Optional
 import torch
 
 __all__ = ["make_weights", "select_tiles", "masked", "quantized", "forward",
-           "prunable_kinds"]
+           "prunable_kinds", "params_tree", "dense_weights_per_token",
+           "other_flops_per_token"]
 
 _DT = {"bfloat16": torch.bfloat16, "float16": torch.float16,
        "float32": torch.float32}
@@ -137,6 +142,41 @@ def make_weights(cfg: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
     if s["E"]:
         out["router"] = normal((s["L"], s["D"], s["E"]), 1.0 / math.sqrt(s["D"]))
     return out
+
+
+def params_tree(w: Dict, cfg: Dict) -> Dict:
+    """The port's params tree over the benchmark's stacked weights ``w``
+    (views, nothing copied)."""
+    layers = []
+    for l in range(cfg["num_hidden_layers"]):
+        attn = {name: {"kernel": w[name][l]} for name in ("wq", "wk", "wv", "wo")}
+        for name in ("q", "k", "v"):
+            if f"b{name}" in w:
+                attn[f"w{name}"]["bias"] = w[f"b{name}"][l]
+        layer = {"pre_norm": {"scale": w["pre_norm"][l]}, "attn": attn,
+                 "post_norm": {"scale": w["post_norm"][l]}}
+        if "router" in w:
+            layer["moe"] = {"router": {"kernel": w["router"][l]},
+                            **{k: w[k][l] for k in ("experts_up", "experts_gate",
+                                                    "experts_down")}}
+        else:
+            layer["mlp"] = {k: {"kernel": w[k][l]}
+                            for k in ("w_up", "w_gate", "w_down")}
+        layers.append(layer)
+    return {"embed": {"embedding": w["embed"]}, "layers": layers,
+            "final_norm": {"scale": w["final_norm"]}}
+
+
+def dense_weights_per_token(cfg: Dict) -> int:
+    """Weights a token multiplies in matrices that pruning leaves dense,
+    besides the routers and the tied head that the plan counts: none."""
+    return 0
+
+
+def other_flops_per_token(cfg: Dict) -> int:
+    """Operations of a token outside matrix products and attention over
+    its positions (a recurrent scan, say): none counted."""
+    return 0
 
 
 def tile_norms(x: torch.Tensor, tile: int) -> torch.Tensor:

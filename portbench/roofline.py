@@ -78,24 +78,29 @@ def planes_call(rows: int, k: int, n: int, live_tiles_per_expert: int,
     return nbytes, flops
 
 
-def model_flops(cfg: Dict, live: Dict[str, float], tokens: int,
-                contexts: int) -> float:
+def model_flops(cfg: Dict, plan: Dict[str, int], live: Dict[str, float],
+                tokens: int, contexts: int, *, dense_weights: int,
+                other_flops: int) -> float:
     """Model FLOPs of ``tokens`` tokens that attend over ``contexts``
-    positions in all (each token's own included): 2 per live weight of
-    the packed matrices a token uses (``live``: live weights of each kind
-    in one layer, per expert for an expert kind, of which a token uses
-    ``top-k``), 2 per weight of the dense products (the router and the
-    tied LM head), and 4 * heads * head_dim per attended position per
-    layer."""
+    positions in all (each token's own included), over the layer plan
+    ``plan`` (``spec.plan_counts``): 2 per live weight of the packed
+    matrices a token uses (``live``: live weights of one matrix of each
+    kind; a token uses the matrix of a non-expert kind in every layer
+    that holds it, and ``top-k`` experts' in every MoE layer), 2 per
+    weight of the dense products (each MoE layer's router, the tied LM
+    head, and the reference's ``dense_weights`` a token), the
+    reference's ``other_flops`` a token, and 4 * heads * head_dim per
+    attended position per attention layer."""
+    from .spec import KIND_LAYER
     d, h = cfg["hidden_size"], cfg["num_attention_heads"]
     dh = cfg.get("head_dim") or d // h
-    layers = cfg["num_hidden_layers"]
     topk = cfg.get("num_experts_per_tok", 0)
-    per_layer = 2 * d * cfg.get("num_local_experts", 0)
+    per_token = (2 * d * plan["experts"] * plan["moe"] + 2 * d * cfg["vocab_size"]
+                 + 2 * dense_weights + other_flops)
     for kind, n in live.items():
-        per_layer += 2 * n * (topk if kind.startswith("experts") else 1)
-    fixed = layers * per_layer + 2 * d * cfg["vocab_size"]
-    return float(fixed * tokens + 4 * h * dh * layers * contexts)
+        layer = KIND_LAYER[kind]
+        per_token += 2 * n * plan[layer] * (topk if layer == "moe" else 1)
+    return float(per_token * tokens + 4 * h * dh * plan["attn"] * contexts)
 
 
 def prefill_contexts(length: int, start: int) -> int:

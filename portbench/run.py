@@ -8,8 +8,10 @@ from the root of a checkout.  The cell's traffic file names the driver
 seed, measures the window and judges what it produced.  With ``--trace
 0`` the result's metrics are the cell's end-to-end metrics; with
 ``--trace 1`` its per-layer metrics, each read from the traced run's
-record by its own reader (``portbench/metrics/<name>.py``), and the
-device's busy and traced seconds.
+record by its own reader (``portbench/metrics/<name>.py``), the
+device's busy and traced seconds, and beside ``breakdown`` the device's
+idle by the program's own spans (``program_idle``), which the port's
+tracer records over the window of a traced run only.
 
 The last line of standard output is the result (one JSON object); the
 last lines of standard error are each compared number beside its limit.
@@ -80,7 +82,8 @@ def metrics(spec, out, setup_s, trace):
     return res
 
 
-def main(argv=None) -> int:
+def main(argv=None, keep=None) -> int:
+    """One run; ``keep`` (a dict) receives the driver's output."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -89,6 +92,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
+    from portbench import programspans
     from portbench import spec as spec_mod
 
     if not torch.cuda.is_available():
@@ -103,6 +107,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     driver = spec_mod.driver(spec["traffic"]["driver"])
     out = driver.run(spec, args.seed, args.seconds, bool(args.trace), device)
+    if keep is not None:
+        keep.update(out)
     setup_s = out["t_open"] - T_START
     found = forbidden_modules()
     if found:
@@ -122,6 +128,8 @@ def main(argv=None) -> int:
     result["device"] = dev
     if args.trace:
         result["breakdown"] = reduced["breakdown"]
+        result["program_idle"] = reduced.get("program_idle")
+        out["notes"].extend(programspans.notes(programspans.summary(out["record"])))
     card = power_limit()
     result["card"] = card
     result["setup"] = {"setup_s": setup_s, "kernel_build_s": out.get("build_s")}

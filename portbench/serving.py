@@ -2,11 +2,12 @@
 engine, and the judgement after the window.
 
 Set-up makes the weights from the seed on the card, hands them to the
-port, which prunes and packs them and builds its engine, then warms up
-every variant the traffic can reach: each admission prefill ``(L,
-start)`` (twice: the capture, then a replay) and each decode-chunk
-variant, and releases the prefix cache, so the window's hits are its
-own.
+port in the layout the configuration's reference gives
+(``params_tree``), which prunes and packs them and builds its engine,
+then warms up every variant the traffic can reach: each admission
+prefill ``(L, start)`` (twice: the capture, then a replay) and each
+decode-chunk variant, and releases the prefix cache, so the window's
+hits are its own.
 
 :class:`Meter` is ``chip_smoke.HostSplit``'s arithmetic, applied from
 outside to one engine instance: host wall of ``step``, ``_admit`` and
@@ -15,13 +16,16 @@ every ``CUDAGraph.replay`` (the admission's when inside ``_admit``) and
 ``record_function`` spans for the trace.  It also stamps each chunk's
 return, which is when the host sees the chunk's tokens, and counts the
 work of every step from the engine's slots: tokens emitted, the
-prefills admitted, and each decode tick's cached lengths.
+prefills admitted, and each decode tick's cached lengths, over the
+attention layers of the configuration's layer plan.  In a traced run it
+turns the port's own tracer on at the window's open and off at its
+close, so the window's spans and counters of the program land in the
+run's record (``record["program"]``).
 """
 from __future__ import annotations
 
 import contextlib
 import gc
-import importlib
 import math
 import time
 from typing import Dict, List, Optional
@@ -31,11 +35,7 @@ import torch
 
 from . import generate, program, roofline
 from .reference import judge
-
-
-def reference(cfg: Dict):
-    """The configuration's plain reference, ``reference/<name>.py``."""
-    return importlib.import_module(f"portbench.reference.{cfg['reference']}")
+from .spec import matrices, plan_counts, reference
 
 __all__ = ["Meter", "setup", "judge_served", "p95"]
 
@@ -71,10 +71,13 @@ class Meter:
 
     ``window`` (bool) says whether a step counts for the window's
     totals; ``trace`` (a :class:`portbench.trace.Trace` or None) whether
-    the step's work is recorded for the rooflines."""
+    the step's work is recorded for the rooflines.  With ``program`` the
+    port's tracer records over the window, and ``self.program`` holds
+    what it recorded once the window has closed."""
 
-    def __init__(self, eng, cfg: Dict, *, events: bool):
+    def __init__(self, eng, cfg: Dict, *, events: bool, program: bool = False):
         self.eng, self.cfg, self.events = eng, cfg, events
+        self.traced_program, self.program = program, None
         self.window = False
         self.trace = None
         self.wall = {"step": 0.0, "admit": 0.0, "chunk": 0.0}
@@ -92,9 +95,11 @@ class Meter:
         self._orig = (eng.step, eng._admit, eng._run_chunk)
         eng.step, eng._admit, eng._run_chunk = self._step, self._admit, self._run_chunk
         self.ps = eng.pool.page_size
+        self.attn_layers = plan_counts(cfg)["attn"]
         self._attn = dict(heads=cfg["num_attention_heads"],
                           kv_heads=cfg["num_key_value_heads"],
-                          head_dim=cfg["hidden_size"] // cfg["num_attention_heads"],
+                          head_dim=(cfg.get("head_dim")
+                                    or cfg["hidden_size"] // cfg["num_attention_heads"]),
                           page_size=self.ps, act=cfg["activ_dtype"],
                           pool="float32")
 
@@ -174,7 +179,7 @@ class Meter:
                 self.decode_ctx[0] += n
                 self.decode_ctx[1] += n * (c0 + 1) + n * (n - 1) // 2
         if self.trace is not None and self.trace.running:
-            layers = self.cfg["num_hidden_layers"]
+            layers = self.attn_layers
             for t in range(ticks):
                 nb, fl = roofline.paged_decode_call(lens[t], **self._attn)
                 self.traced["decode_least_s"] += layers * roofline.least_seconds(
@@ -231,8 +236,12 @@ class Meter:
         self._wall0 = dict(self.wall)
         self._chunks0 = self.chunks
         self.t_open = time.perf_counter()
+        if self.traced_program:
+            program.tracer_on()
 
     def close_window(self) -> None:
+        if self.traced_program:
+            self.program = program.tracer_off()
         self.window = False
         self.t_close = time.perf_counter()
         self.window_wall = {k: self.wall[k] - self._wall0[k] for k in self.wall}
@@ -302,7 +311,7 @@ def setup(spec: Dict, seed: int, device) -> Dict:
     built_s = program.build_kernels(device)
     weights = reference(cfg).make_weights(cfg, seed, device)
     model_cfg = program.port_config(cfg)
-    packed, summ = program.pack(program.params_tree(weights, cfg), cfg)
+    packed, summ = program.pack(reference(cfg).params_tree(weights, cfg), cfg)
     eng = program.engine(packed, model_cfg, traffic, seed, device)
     warmed = warm_up(eng, traffic, cfg["vocab_size"], seed)
     gc.collect()
@@ -378,7 +387,7 @@ def run_serving(spec: Dict, seed: int, seconds: float, trace: bool, device,
     build_s, state_summary = state["build_s"], state["summary"]
     eng = state["engine"]
     reqs = generate.stream(traffic, cfg["vocab_size"], seed, seconds)
-    meter = Meter(eng, cfg, events=trace)
+    meter = Meter(eng, cfg, events=trace, program=trace)
     tracer = Trace(device) if trace else None
     meter.trace = tracer
     gc.collect()
@@ -390,13 +399,17 @@ def run_serving(spec: Dict, seed: int, seconds: float, trace: bool, device,
         torch.cuda.synchronize(device)
     captured = captures_in_window(eng, state["warmed"])
     host = meter.host_split(captured["seconds"]) if trace else None
-    reduced = tracer.reduce() if tracer is not None and tracer.t_stop else None
+    reduced = (tracer.reduce(meter.program["spans"])
+               if tracer is not None and tracer.t_stop else None)
     if reduced is not None:
         out.setdefault("notes", []).append(f"profiler: {reduced['costs']}")
     ps = eng.pool.page_size
+    plan = plan_counts(cfg)
     record = {
         "cfg": cfg, "traffic": traffic, "window_s": meter.t_close - meter.t_open,
         "host": host, "trace": reduced, "traced": meter.traced,
+        "program": meter.program, "plan": plan,
+        "per_token": per_token(cfg),
         "num_slots": eng.num_slots,
         "prefix": prefix_counts(meter.admitted, ps),
         "flops_in": {"decode_tokens": meter.decode_ctx[0],
@@ -418,12 +431,8 @@ def run_serving(spec: Dict, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
     verdict = judge_served(out["done"], cfg, traffic, weights, seed, device,
                            control=bool(hooks and hooks.get("control")))
-    tile = int(cfg["pruning"]["block"][0])
-    layers = cfg["num_hidden_layers"]
-    experts = max(cfg.get("num_local_experts", 0), 1)
-    record["live"] = {k: n * tile * tile / (layers * (experts if k.startswith("experts")
-                                                      else 1))
-                      for k, n in verdict["live"].items()}
+    record["live"] = live_per_matrix(verdict["live"], plan,
+                                     int(cfg["pruning"]["block"][0]))
     record["live_tiles"] = verdict["live"]
     limits = spec["limits"]
     checks = {
@@ -454,6 +463,21 @@ def run_serving(spec: Dict, seed: int, seconds: float, trace: bool, device,
             "checks": checks, "correct": passed(checks), "memory_peak_bytes": peak,
             "t_open": out["t_open"], "build_s": build_s, "notes": notes + out.get("notes", []),
             "judge": verdict, "control": control}
+
+
+def live_per_matrix(live_tiles: Dict[str, int], plan: Dict[str, int],
+                    tile: int) -> Dict[str, float]:
+    """Live weights of one matrix of each kind (one expert's, for an
+    expert kind), from each kind's live tiles over the stack."""
+    return {k: n * tile * tile / matrices(k, plan) for k, n in live_tiles.items()}
+
+
+def per_token(cfg: Dict) -> Dict[str, int]:
+    """The model FLOPs' terms a token has that only the configuration's
+    reference knows (``roofline.model_flops``)."""
+    ref = reference(cfg)
+    return {"dense_weights": ref.dense_weights_per_token(cfg),
+            "other_flops": ref.other_flops_per_token(cfg)}
 
 
 def passed(checks: Dict) -> bool:

@@ -138,7 +138,9 @@ def test_readers_on_a_synthetic_record():
            "prefix": {"tokens_mapped": 30, "prompt_tokens": 120},
            "flops_in": {"decode_tokens": 10, "decode_contexts": 100,
                         "prefill_tokens": 5, "prefill_contexts": 15},
-           "live": {"wq": 1000.0}, "host": {"admit_host_ms": 1.5}}
+           "live": {"wq": 1000.0}, "host": {"admit_host_ms": 1.5},
+           "plan": spec_mod.plan_counts(cfg),
+           "per_token": {"dense_weights": 0, "other_flops": 0}}
     assert readers.idle_share(rec) == pytest.approx(25.0)
     assert readers.prefix_hit_share(rec) == pytest.approx(25.0)
     assert readers.paged_decode_roofline(rec) == pytest.approx(50.0)
@@ -160,6 +162,7 @@ def test_planes_reader_counts_every_call():
            "pruning": {"block": [128, 128]}}
     live = {"experts_up": 2 * 4 * 1, "experts_gate": 2 * 4 * 1, "experts_down": 2 * 4 * 1}
     rec = {"cfg": cfg, "num_slots": 8, "live_tiles": live,
+           "plan": spec_mod.plan_counts(cfg),
            "trace": {"ops": {"bsr_planes_kernel<x>": {"seconds": 1.0, "calls": 3 * 2 * 3}}},
            "traced": {"ticks": 2, "admissions": [(5, 0)]}}
     least = 0.0

@@ -37,7 +37,7 @@ def test_selection_matches_the_ports_knapsack(cell):
     from repro_torch.core import BlockingSpec
     from repro_torch.sparse import knapsack_prune
     pr = cfg["pruning"]
-    sel = knapsack_prune(program.params_tree(w, cfg), sparsity=pr["sparsity"],
+    sel = knapsack_prune(decoder.params_tree(w, cfg), sparsity=pr["sparsity"],
                          blocking=BlockingSpec(*pr["block"]), min_size=pr["min_size"])
     tile = pr["block"][0]
     for kind, flags in keep.items():
@@ -62,7 +62,7 @@ def test_reference_logits_match_the_port(cell):
     keep = decoder.select_tiles(w, cfg)
     ref = decoder.forward(decoder.masked(w, keep, cfg),
                           torch.arange(40) % cfg["vocab_size"], cfg)
-    params = program.params_tree(w, cfg)
+    params = decoder.params_tree(w, cfg)
     packed, _ = program.pack(params, cfg)
     mcfg = program.port_config(cfg)
     tokens = (torch.arange(40) % cfg["vocab_size"])[None]
